@@ -1,0 +1,360 @@
+"""CLIP dual-tower model (ViT image tower + text tower) as ``nn.Module``s.
+
+Mirrors ``clip_calibration_tpu/models/clip.py`` with PyTorch idiom: the
+towers are modules holding their parameters (frozen: the eval path never
+backpropagates), the functions below run them. Layouts are the JAX
+package's — batch-first [B, L, D], matmul weights stored [in, out]
+(``x @ w``), patchify-as-matmul with (ph, pw, c) patch vectors — so the
+same flattened parameters load into either package
+(``models/weights.py::params_from_numpy``).
+
+Precision: matmul weights in the compute dtype (bf16, or fp32);
+LayerNorm, softmax, logits and embeddings in fp32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.attention import (causal_mask, layer_norm, multi_head_attention,
+                             quick_gelu)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    embed_dim: int
+    image_resolution: int
+    vision_layers: int
+    vision_width: int
+    vision_patch_size: int
+    transformer_width: int
+    transformer_heads: int
+    transformer_layers: int
+    context_length: int = 77
+    vocab_size: int = 49408
+
+    @property
+    def vision_heads(self) -> int:
+        return self.vision_width // 64
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_resolution // self.vision_patch_size
+
+    @property
+    def vision_seq_len(self) -> int:
+        return self.grid_size ** 2 + 1
+
+
+# ViT presets of the public OpenAI checkpoints, plus the tiny test backbone
+# (the ResNet towers are not ported yet)
+PRESETS: Dict[str, CLIPConfig] = {
+    "ViT-B/16": CLIPConfig(512, 224, 12, 768, 16, 512, 8, 12),
+    "ViT-B/32": CLIPConfig(512, 224, 12, 768, 32, 512, 8, 12),
+    "ViT-L/14": CLIPConfig(768, 224, 24, 1024, 14, 768, 12, 12),
+    "ViT-L/14@336px": CLIPConfig(768, 336, 24, 1024, 14, 768, 12, 12),
+    "ViT-Test": CLIPConfig(32, 32, 2, 64, 8, 64, 4, 2),
+}
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, width: int, device):
+        super().__init__()
+        self.scale = _param((width,), torch.float32, device)
+        self.bias = _param((width,), torch.float32, device)
+
+    def forward(self, x):
+        return layer_norm(x, self.scale, self.bias)
+
+
+class Attention(nn.Module):
+    def __init__(self, width: int, dtype, device):
+        super().__init__()
+        self.wqkv = _param((width, 3 * width), dtype, device)
+        self.bqkv = _param((3 * width,), torch.float32, device)
+        self.wo = _param((width, width), dtype, device)
+        self.bo = _param((width,), torch.float32, device)
+
+
+class MLP(nn.Module):
+    def __init__(self, width: int, dtype, device):
+        super().__init__()
+        self.w_fc = _param((width, 4 * width), dtype, device)
+        self.b_fc = _param((4 * width,), torch.float32, device)
+        self.w_proj = _param((4 * width, width), dtype, device)
+        self.b_proj = _param((width,), torch.float32, device)
+
+
+class Block(nn.Module):
+    """One residual attention block (pre-LN, QuickGELU MLP)."""
+
+    def __init__(self, width: int, dtype, device):
+        super().__init__()
+        self.ln_1 = LayerNorm(width, device)
+        self.attn = Attention(width, dtype, device)
+        self.ln_2 = LayerNorm(width, device)
+        self.mlp = MLP(width, dtype, device)
+
+    def forward(self, h, n_heads: int, mask):
+        a = self.attn
+        h = h + multi_head_attention(self.ln_1(h), a.wqkv, a.bqkv, a.wo,
+                                     a.bo, n_heads, mask)
+        m = self.mlp
+        y = self.ln_2(h)
+        y = quick_gelu(y @ m.w_fc + m.b_fc.to(y.dtype))
+        return h + (y @ m.w_proj + m.b_proj.to(y.dtype))
+
+
+class VisionTower(nn.Module):
+    def __init__(self, cfg: CLIPConfig, dtype, device):
+        super().__init__()
+        vw, p = cfg.vision_width, cfg.vision_patch_size
+        f32 = torch.float32
+        self.patch_kernel = _param((p * p * 3, vw), dtype, device)
+        self.class_embedding = _param((vw,), f32, device)
+        self.positional_embedding = _param((cfg.vision_seq_len, vw), f32,
+                                           device)
+        self.ln_pre = LayerNorm(vw, device)
+        self.blocks = nn.ModuleList(Block(vw, dtype, device)
+                                    for _ in range(cfg.vision_layers))
+        self.ln_post = LayerNorm(vw, device)
+        self.proj = _param((vw, cfg.embed_dim), dtype, device)
+
+
+class TextTower(nn.Module):
+    def __init__(self, cfg: CLIPConfig, dtype, device):
+        super().__init__()
+        tw = cfg.transformer_width
+        f32 = torch.float32
+        self.token_embedding = _param((cfg.vocab_size, tw), f32, device)
+        self.positional_embedding = _param((cfg.context_length, tw), f32,
+                                           device)
+        self.blocks = nn.ModuleList(Block(tw, dtype, device)
+                                    for _ in range(cfg.transformer_layers))
+        self.ln_final = LayerNorm(tw, device)
+        self.text_projection = _param((tw, cfg.embed_dim), dtype, device)
+
+
+class CLIP(nn.Module):
+    """Both towers and the learned log logit scale. Parameters are
+    allocated uninitialised: fill them with ``init_clip`` or
+    ``models/weights.py::params_from_numpy``."""
+
+    def __init__(self, cfg: CLIPConfig, dtype=torch.bfloat16,
+                 device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.visual = VisionTower(cfg, dtype, device)
+        self.text = TextTower(cfg, dtype, device)
+        self.logit_scale = _param((), torch.float32, device)
+
+
+@torch.no_grad()
+def init_clip(model: CLIP, seed: int) -> CLIP:
+    """Seeded random init in place, with the reference's distributions
+    (``clip/model.py:572-580``). Draws from a ``torch.Generator`` on the
+    model's device, so values differ from the JAX package's init."""
+    device = model.logit_scale.device
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(p, std):
+        p.copy_(torch.randn(p.shape, generator=gen, device=device,
+                            dtype=torch.float32) * std)
+
+    def blocks(mods, width):
+        n = len(mods)
+        for b in mods:
+            for ln in (b.ln_1, b.ln_2):
+                ln.scale.fill_(1.0)
+                ln.bias.zero_()
+            normal(b.attn.wqkv, width ** -0.5)
+            b.attn.bqkv.zero_()
+            normal(b.attn.wo, (width ** -0.5) * ((2 * n) ** -0.5))
+            b.attn.bo.zero_()
+            normal(b.mlp.w_fc, (2 * width) ** -0.5)
+            b.mlp.b_fc.zero_()
+            normal(b.mlp.w_proj, (width ** -0.5) * ((2 * n) ** -0.5))
+            b.mlp.b_proj.zero_()
+
+    cfg = model.cfg
+    v, t = model.visual, model.text
+    scale = cfg.vision_width ** -0.5
+    normal(v.patch_kernel, scale)
+    normal(v.class_embedding, scale)
+    normal(v.positional_embedding, scale)
+    blocks(v.blocks, cfg.vision_width)
+    normal(v.proj, scale)
+    normal(t.token_embedding, 0.02)
+    normal(t.positional_embedding, 0.01)
+    blocks(t.blocks, cfg.transformer_width)
+    normal(t.text_projection, cfg.transformer_width ** -0.5)
+    for ln in (v.ln_pre, v.ln_post, t.ln_final):
+        ln.scale.fill_(1.0)
+        ln.bias.zero_()
+    model.logit_scale.fill_(math.log(1 / 0.07))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Transformer
+# ---------------------------------------------------------------------------
+
+def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the residual blocks over x [B, L, D].
+
+    The token axis is padded ONCE to a multiple of 16 for the whole tower
+    (the JAX package's contract, kept so both see the same shapes):
+    padded keys are masked with finfo.min, padded rows attend to token 0
+    only, so real-token outputs are unchanged and every row keeps a finite
+    key; the pad is sliced off on return.
+    """
+    transformer.forwards += 1
+    L = x.shape[1]
+    Lp = ((L + 15) // 16) * 16
+    if Lp != L:
+        x = torch.nn.functional.pad(x, (0, 0, 0, Lp - L))
+        neg = torch.finfo(torch.float32).min
+        full = torch.zeros((Lp, Lp), dtype=torch.float32, device=x.device)
+        if mask is not None:
+            full[:L, :L] = mask.float()
+        full[:, L:] = neg
+        full[L:, :] = neg
+        full[L:, 0] = 0.0
+        mask = full
+    elif mask is None:
+        mask = torch.zeros((L, L), dtype=torch.float32, device=x.device)
+    for block in blocks:
+        x = block(x, n_heads, mask)
+    return x[:, :L] if Lp != L else x
+
+
+#: tower forwards run since the last reset (each runs one fused-attention
+#: call per layer)
+transformer.forwards = 0
+
+
+# ---------------------------------------------------------------------------
+# Encoders
+# ---------------------------------------------------------------------------
+
+def _splice_text(x: torch.Tensor, prompt: torch.Tensor) -> torch.Tensor:
+    """Replace x[:, 1:1+n_ctx] with prompt (text-side splice, reference
+    ``clip/model.py:247-256``)."""
+    n_ctx = prompt.shape[0]
+    tiled = prompt.to(x.dtype).expand(x.shape[0], *prompt.shape)
+    return torch.cat([x[:, :1], tiled, x[:, 1 + n_ctx:]], dim=1)
+
+
+def _splice_vision(x: torch.Tensor, prompt: torch.Tensor,
+                   real_len: int) -> torch.Tensor:
+    """Replace the trailing n_ctx REAL tokens with prompt (vision-side
+    splice, reference ``clip/model.py:236-243``); padding rows past
+    ``real_len`` stay in place."""
+    n_ctx = prompt.shape[0]
+    tiled = prompt.to(x.dtype).expand(x.shape[0], *prompt.shape)
+    return torch.cat([x[:, :real_len - n_ctx], tiled, x[:, real_len:]],
+                     dim=1)
+
+
+def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
+                         eot_pos: torch.Tensor,
+                         seq_len: Optional[int] = None) -> torch.Tensor:
+    """Text tower over pre-embedded prompts [N, 77, D] (the PromptLearner
+    path, reference TextEncoder ``trainers/classification/coop.py:47-67``).
+
+    eot_pos: [N] index of the EOT token per row (pooling position).
+    seq_len: truncation (> max(eot_pos)). The mask is causal, so tokens
+    past the longest EOT cannot reach the pooled feature; None keeps the
+    full length.
+    """
+    txt = model.text
+    if seq_len is not None and seq_len < x.shape[1]:
+        mx = int(eot_pos.max())
+        if mx >= seq_len:
+            raise ValueError(
+                f"seq_len={seq_len} drops an EOT at position {mx}; "
+                f"use eot_seq_len(eot_pos) (= max+1)")
+        x = x[:, :seq_len]
+    x = x + txt.positional_embedding[:x.shape[1]].to(x.dtype)
+    mask = causal_mask(x.shape[1], device=x.device)
+    x = transformer(txt.blocks, x, cfg.transformer_heads, mask)
+    x = txt.ln_final(x)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos]
+    return pooled @ txt.text_projection
+
+
+def eot_seq_len(tokens_or_eot) -> int:
+    """One past the furthest EOT pooling position, from raw [N, L] token
+    rows (EOT is the max token id per row) or [N] EOT positions."""
+    a = np.asarray(tokens_or_eot)
+    if a.ndim == 2:
+        a = a.argmax(-1)
+    return int(np.max(a)) + 1
+
+
+def encode_text(model: CLIP, cfg: CLIPConfig, tokens: torch.Tensor,
+                dtype=torch.bfloat16,
+                seq_len: Optional[int] = None) -> torch.Tensor:
+    """Raw-token text encode (reference ``clip/model.py:598-613``)."""
+    x = model.text.token_embedding[tokens].to(dtype)
+    # EOT from the UNTRUNCATED row; encode_text_embedded then rejects a
+    # seq_len that would drop it
+    eot_pos = tokens.argmax(dim=-1)
+    return encode_text_embedded(model, cfg, x, eot_pos, seq_len=seq_len)
+
+
+def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, 3] -> [B, n_patches, p*p*3], (ph, pw, c) patch order."""
+    B, H, W, C = images.shape
+    gh, gw = H // patch, W // patch
+    x = images.reshape(B, gh, patch, gw, patch, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, gh * gw, patch * patch * C)
+
+
+def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """Vision tower. images: [B, H, W, 3] (NHWC, preprocessed)."""
+    vp = model.visual
+    x = patchify(images.to(dtype), cfg.vision_patch_size) @ vp.patch_kernel
+    cls = vp.class_embedding.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
+    x = torch.cat([cls, x], dim=1)
+    x = x + vp.positional_embedding.to(x.dtype)
+    x = vp.ln_pre(x)
+    x = transformer(vp.blocks, x, cfg.vision_heads)
+    x = vp.ln_post(x[:, 0])
+    return x @ vp.proj
+
+
+# ---------------------------------------------------------------------------
+# Scoring
+# ---------------------------------------------------------------------------
+
+def normalize(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True)
+                + eps).to(x.dtype)
+
+
+def cosine_logits(image_features: torch.Tensor,
+                  text_features: torch.Tensor,
+                  logit_scale: torch.Tensor) -> torch.Tensor:
+    """scale * normalize(img) @ normalize(txt).T in fp32."""
+    img = normalize(image_features).float()
+    txt = normalize(text_features).float()
+    return torch.exp(logit_scale.float()) * (img @ txt.T)

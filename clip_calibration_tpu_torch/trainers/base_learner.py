@@ -1,0 +1,328 @@
+"""VLBaseLearner: the calibrated-evaluation pipeline.
+
+Parity target: reference ``trainers/classification/base_learner.py``.
+``test()`` runs the inference loop, persists/loads the cross-run feature
+caches (``./temp/base_features/...`` and ``./temp/knndist/...`` — the
+filesystem handshake that coordinates the ZeroshotCLIP-base -> trainer-base
+-> new-class-eval pipeline), assembles the 4-way text-feature dict, fits
+VLCalibration, computes test-set proximity, and evaluates calibrated
+probabilities.
+
+The caches are npz payloads under the reference's paths and file names,
+byte-compatible with the JAX package's (a torch reader covers caches
+written by the reference). Text features are computed once per class set;
+the eval loop stages batches to the device one ahead and fetches batch N
+while batch N+1 runs.
+"""
+
+from __future__ import annotations
+
+import functools
+import io
+import os
+import os.path as osp
+
+import numpy as np
+import torch
+
+from ..engine.registry import TRAINER_REGISTRY
+from ..engine.trainer import TrainerX
+from ..models import clip as M
+from ..models.backbone import load_clip_backbone
+from ..models.tokenizer import tokenize
+from .calibration.proximity import (get_knn_dists, get_val_image_knn_dists,
+                                    proximity_from_dists)
+from .calibration.vl_calibrator import VLCalibration
+from .templates import build_clip_templates
+
+TEMP_ROOT = "./temp"
+
+
+def _save_feature_dict(path: str, d: dict) -> None:
+    os.makedirs(osp.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        np.savez(f, **{k: np.asarray(v) for k, v in d.items()})
+
+
+def _load_feature_dict(path: str) -> dict:
+    try:
+        with open(path, "rb") as f:
+            data = np.load(io.BytesIO(f.read()), allow_pickle=False)
+            out = {k: data[k] for k in data.files}
+            # torch zip archives also open as npz but yield raw bytes
+            if not out or not all(isinstance(v, np.ndarray)
+                                  for v in out.values()):
+                raise ValueError("not an npz feature cache")
+            return out
+    except (ValueError, OSError):
+        d = torch.load(path, map_location="cpu", weights_only=False)
+        return {k: np.asarray(v) for k, v in d.items()}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
+
+
+@functools.lru_cache(maxsize=2)
+def _zs_clip_cached(backbone_name: str, ckpt_dir, dtype_str: str,
+                    device: str):
+    return load_clip_backbone(backbone_name, dtype_str, device)
+
+
+def _zs_clip(backbone_name: str, precision: str, device):
+    """Frozen zero-shot CLIP for calibration text features (reference
+    ``tools/zsclip_encoder.py:29-48``), cached per backbone, weight dir,
+    precision and device."""
+    return _zs_clip_cached(
+        backbone_name, os.environ.get("CLIP_CHECKPOINT_DIR"),
+        "float32" if precision == "fp32" else "bfloat16", str(device))
+
+
+@torch.inference_mode()
+def encode_classnames_zs(backbone_name: str, dataset_name: str, classnames,
+                         template: str | None = None,
+                         precision: str = "bf16",
+                         device="cuda") -> np.ndarray:
+    """Zero-shot text features for the given class names, normalized."""
+    model, ccfg = _zs_clip(backbone_name, precision, device)
+    dtype = torch.float32 if precision == "fp32" else torch.bfloat16
+    temp = template or build_clip_templates(dataset_name)
+    prompts = [temp.format(c.replace("_", " ")) for c in classnames]
+    toks = tokenize(prompts)
+    feats = M.normalize(M.encode_text(
+        model, ccfg, torch.as_tensor(toks, dtype=torch.long,
+                                     device=model.logit_scale.device),
+        dtype=dtype, seq_len=M.eot_seq_len(toks)))
+    return _host(feats)
+
+
+@TRAINER_REGISTRY.register()
+class VLBaseLearner(TrainerX):
+    """Base trainer for vision-language tuning and calibration."""
+
+    #: True on trainers whose ``model_inference`` logits are exactly
+    #: ``exp(logit_scale) * norm(img_f) @ norm(txt_f).T`` of the features
+    #: it returns — the contract the fused DAC scoring (ops/scoring.py)
+    #: recomputes on the device.
+    fused_dac_scoring = False
+
+    def fused_dac_logit_scale(self):
+        """Log logit-scale for the fused DAC scoring path, or None when
+        this trainer's logits are not plain cosine scores."""
+        if not self.fused_dac_scoring:
+            return None
+        return self.clip_model.logit_scale
+
+    # -- cache paths (reference base_learner.py:106-108,123-134) ------------
+    def _base_feature_dir(self, subsample: str) -> str:
+        cfg = self.cfg
+        return osp.join(TEMP_ROOT, "base_features", cfg.DATASET.NAME,
+                        cfg.TRAINER.NAME,
+                        "shots" + str(cfg.DATASET.NUM_SHOTS),
+                        cfg.MODEL.BACKBONE.NAME, subsample,
+                        "seed" + str(cfg.SEED))
+
+    def _knndist_dir(self) -> str:
+        cfg = self.cfg
+        return osp.join(TEMP_ROOT, "knndist", cfg.DATASET.NAME,
+                        cfg.TRAINER.NAME,
+                        "shots" + str(cfg.DATASET.NUM_SHOTS),
+                        cfg.MODEL.BACKBONE.NAME,
+                        cfg.DATASET.SUBSAMPLE_CLASSES,
+                        "seed" + str(cfg.SEED),
+                        "nn" + str(cfg.CALIBRATION.PROCAL.IMAGE_K))
+
+    # -- inference loop -------------------------------------------------------
+    @torch.inference_mode()
+    def _run_inference(self, data_loader):
+        """Returns (logits, labels, image_features, text_features) as
+        host arrays. Batch N's outputs are fetched after batch N+1 has
+        been queued, so the copy back overlaps the next batch's work."""
+        logits_all, labels_all, img_f_all = [], [], []
+        text_features = None
+        pending = None
+
+        def collect(p):
+            (output, img_f, txt_f), n, labels = p
+            logits_all.append(_host(output)[:n])
+            img_f_all.append(_host(img_f)[:n])
+            labels_all.append(labels.cpu().numpy()[:n])
+            return txt_f
+
+        for batch in self._device_staged(data_loader):
+            images, labels = self.parse_batch_test(batch)
+            out = self.model_inference(images)
+            if pending is not None:
+                text_features = collect(pending)
+            pending = (out, batch["n_real"], labels)
+        if pending is not None:
+            text_features = collect(pending)
+        return (np.concatenate(logits_all), np.concatenate(labels_all),
+                np.concatenate(img_f_all), _host(text_features))
+
+    # -- the generic testing pipeline (reference base_learner.py:59-152) ----
+    def test(self, split=None):
+        self.set_model_mode("eval")
+        self.evaluator.reset()
+        cfg = self.cfg
+
+        if split is None:
+            split = cfg.TEST.SPLIT
+        if split == "val" and self.val_loader is not None:
+            data_loader = self.val_loader
+        else:
+            split = "test"
+            data_loader = self.test_loader
+        print(f"Evaluate on the *{split}* set")
+
+        logits, labels, image_features_test, text_features_test = \
+            self._run_inference(data_loader)
+
+        # cache base-class val features (trains the calibrator downstream)
+        if cfg.DATASET.SUBSAMPLE_CLASSES == "base":
+            self.save_base_val_features()
+
+        val_feature_path = osp.join(self._base_feature_dir("base"),
+                                    "base_features.pt")
+        val_dict = _load_feature_dict(val_feature_path)
+
+        calibrator = VLCalibration(
+            cfg,
+            cfg.CALIBRATION.BASE_CALIBRATION_MODE,
+            cfg.CALIBRATION.BIN.BIN_CALIBRATOR_NAME,
+            cfg.CALIBRATION.DAC.IF_DAC,
+            cfg.CALIBRATION.PROCAL.IF_PROCAL,
+            val_dict,
+            self.get_text_features(text_features_test,
+                                   val_dict=val_dict))
+        calibrator.fit()
+
+        # test-set proximity (cached only for the test split: the cache
+        # path has no split component)
+        base_val_image_features = val_dict["val_image_features"]
+        k = cfg.CALIBRATION.PROCAL.IMAGE_K
+        if split == "test":
+            dist_dir = self._knndist_dir()
+            dist_path = osp.join(dist_dir, "knndist.npy")
+            if osp.exists(dist_path):
+                print(f"load the knn distance from: {dist_path}")
+                knndists = np.load(dist_path)
+            else:
+                knndists = get_knn_dists(base_val_image_features,
+                                         image_features_test, k,
+                                         device=self.device)
+                os.makedirs(dist_dir, exist_ok=True)
+                np.save(dist_path, knndists)
+        else:
+            knndists = get_knn_dists(base_val_image_features,
+                                     image_features_test, k,
+                                     device=self.device)
+        test_img_proximity = proximity_from_dists(knndists)
+
+        probs = self._calibrated_probs(calibrator, logits,
+                                       image_features_test,
+                                       text_features_test,
+                                       test_img_proximity)
+        results = self.evaluator.evaluate(probs, labels,
+                                          test_img_proximity)
+
+        for name, value in results.items():
+            self.write_scalar(f"{split}/{name}", value, self.epoch)
+        return list(results.values())[0]
+
+    @torch.inference_mode()
+    def _calibrated_probs(self, calibrator, logits, image_features_test,
+                          text_features_test, test_img_proximity):
+        """Calibrated probabilities for the eval loop's outputs.
+
+        DAC-only configuration (the paper's headline): the fused scoring
+        on the device (ops/scoring.py) from the returned unit-norm
+        features. Any composed base calibrator, or logits that are not
+        plain cosine scores, take the numpy calibrator instead. The two
+        agree exactly in fp32; in bf16 the fused path recomputes logits
+        from bf16-rounded features (tests/test_golden_e2e.py's parity
+        holds at MODEL.PRECISION fp32).
+        """
+        if calibrator.dac_calibrator is not None and \
+                calibrator.base_calibrator is None:
+            fused_scale = self.fused_dac_logit_scale()
+            if fused_scale is not None:
+                from ..ops.scoring import fused_dac_scores
+
+                def dev(a):
+                    return torch.as_tensor(np.asarray(a, np.float32),
+                                           device=self.device)
+                probs, _ = fused_dac_scores(
+                    dev(image_features_test), dev(text_features_test),
+                    fused_scale,
+                    dev(calibrator.dac_calibrator.class_confidence),
+                    normalized=True)
+                return probs.cpu().numpy().astype(np.float64)
+        return calibrator.predict(logits, test_img_proximity)
+
+    # -- base-class val feature cache (reference base_learner.py:176-239) ---
+    def save_base_val_features(self):
+        save_dir = osp.join(
+            self._base_feature_dir(self.cfg.DATASET.SUBSAMPLE_CLASSES),
+            "base_features.pt")
+        if osp.exists(save_dir):
+            print(f"File {save_dir} already exists. "
+                  "Skipping save operation.")
+            return
+        print("Saving base features from val dataset")
+        logits, labels, img_f, txt_f = self._run_inference(self.val_loader)
+        knn = get_val_image_knn_dists(img_f,
+                                      self.cfg.CALIBRATION.PROCAL.IMAGE_K,
+                                      device=self.device)
+        _save_feature_dict(save_dir, {
+            "val_logits": logits,
+            "val_image_features": img_f,
+            "val_text_features": txt_f,
+            "val_labels": labels,
+            "val_image_knn_dists": knn,
+        })
+
+    # -- 4-way text features (reference base_learner.py:242-293) -----------
+    def get_text_features(self, current_text_features_tuned=None,
+                          val_dict=None):
+        cfg = self.cfg
+        if val_dict is None:
+            val_dict = _load_feature_dict(
+                osp.join(self._base_feature_dir("base"),
+                         "base_features.pt"))
+
+        # 1. base text features from the cached ZeroshotCLIP base run
+        # (hardcoded seed 1, reference base_learner.py:253-255)
+        zs_dir = osp.join(TEMP_ROOT, "base_features", cfg.DATASET.NAME,
+                          "ZeroshotCLIP",
+                          "shots" + str(cfg.DATASET.NUM_SHOTS),
+                          cfg.MODEL.BACKBONE.NAME, "base", "seed1",
+                          "base_features.pt")
+        base_text_features_zs = _load_feature_dict(zs_dir)[
+            "val_text_features"]
+
+        # 2. current classes through frozen zero-shot CLIP
+        current_text_features_zs = encode_classnames_zs(
+            cfg.MODEL.BACKBONE.NAME, cfg.DATASET.NAME,
+            self.dm.dataset.classnames, precision=cfg.MODEL.PRECISION,
+            device=self.device)
+
+        # 3. base text features from this trainer's own base run
+        base_text_features_tuned = val_dict["val_text_features"]
+
+        # 4. current classes through the tuned model (one inference)
+        if current_text_features_tuned is None:
+            batch = next(iter(self.test_loader))
+            images, _ = self.parse_batch_test(batch)
+            with torch.inference_mode():
+                _, _, txt_f = self.model_inference(self.put_batch(images))
+            current_text_features_tuned = _host(txt_f)
+
+        return {
+            "base_text_features_zs": np.asarray(base_text_features_zs),
+            "current_text_features_zs": current_text_features_zs,
+            "base_text_features_tuned":
+                np.asarray(base_text_features_tuned),
+            "current_text_features_tuned":
+                np.asarray(current_text_features_tuned),
+        }

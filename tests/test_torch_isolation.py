@@ -1,0 +1,147 @@
+"""The port stands alone: it imports nothing of JAX or the JAX package,
+runs without scikit-learn and matplotlib (optional for the port), and
+never falls back to the CPU on its own."""
+
+import ast
+import glob
+import os
+import os.path as osp
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+PORT = osp.join(REPO, "clip_calibration_tpu_torch")
+FIX = osp.join(REPO, "tests", "fixtures", "golden_e2e")
+FORBIDDEN = ("jax", "jaxlib", "optax", "ml_dtypes", "clip_calibration_tpu")
+
+SOURCES = sorted(glob.glob(osp.join(PORT, "**", "*.py"), recursive=True)
+                 ) + [osp.join(REPO, "chip_smoke.py")]
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[osp.relpath(p, REPO) for p in SOURCES])
+def test_no_jax_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{osp.relpath(path, REPO)} imports {mod}"
+
+
+def test_port_has_its_own_assets():
+    assert osp.exists(osp.join(PORT, "assets", "bpe_simple_vocab_16e6.txt.gz"))
+    assert osp.exists(osp.join(PORT, "csrc", "mha_qkv_fwd.cu"))
+
+
+_BLOCKER = textwrap.dedent("""
+    import sys
+
+    class Blocker:
+        # jax and the JAX package, plus scikit-learn and matplotlib,
+        # which the port's main path must not need
+        names = ("jax", "jaxlib", "optax", "ml_dtypes",
+                 "clip_calibration_tpu", "sklearn", "matplotlib")
+
+        def find_spec(self, fullname, path=None, target=None):
+            if any(fullname == n or fullname.startswith(n + ".")
+                   for n in self.names):
+                raise ImportError(f"blocked: {fullname}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+""")
+
+
+def _run(code, cwd, env_extra=None, timeout=300):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2",
+               **(env_extra or {}))
+    return subprocess.run([sys.executable, "-c", _BLOCKER + code], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    """Import the port and run one ViT-Test encode on the CPU."""
+    code = textwrap.dedent("""
+        import torch
+        from clip_calibration_tpu_torch.models import clip as M
+        from clip_calibration_tpu_torch.models.backbone import (
+            load_clip_backbone)
+        model, cfg = load_clip_backbone("ViT-Test", "float32", "cpu")
+        with torch.inference_mode():
+            f = M.encode_image(model, cfg, torch.zeros(2, 32, 32, 3),
+                               dtype=torch.float32)
+        assert f.shape == (2, 32) and bool(torch.isfinite(f).all())
+        assert "jax" not in sys.modules
+        print("ok")
+    """)
+    r = _run(code, str(tmp_path),
+             {"CLIP_CHECKPOINT_DIR": osp.join(FIX, "weights")})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith("ok")
+
+
+def test_cli_stage_runs_with_jax_and_sklearn_blocked(tmp_path):
+    """The whole ZeroshotCLIP stage of the CLI (loader, tokenizer, towers,
+    KNN, calibrator, evaluator) runs without jax, sklearn or matplotlib."""
+    import shutil
+    shutil.copytree(osp.join(FIX, "data", "caltech-101"),
+                    tmp_path / "data" / "caltech-101")
+    args = ["--device", "cpu", "--seed", "1", "--backbone", "ViT-Test",
+            "--root", "data", "--trainer", "ZeroshotCLIP",
+            "--dataset-config-file",
+            osp.join(REPO, "configs", "datasets", "caltech101.yaml"),
+            "--config-file", osp.join(FIX, "coop_fp32.yaml"),
+            "--output-dir", "out", "DATASET.NUM_SHOTS", "4",
+            "MODEL.PRECISION", "fp32", "INPUT.SIZE", "(32, 32)",
+            "DATASET.SUBSAMPLE_CLASSES", "base"]
+    code = textwrap.dedent(f"""
+        import runpy
+        sys.argv = ["train"] + {args!r}
+        runpy.run_module("clip_calibration_tpu_torch.train",
+                         run_name="__main__")
+    """)
+    r = _run(code, str(tmp_path),
+             {"CLIP_CHECKPOINT_DIR": osp.join(FIX, "weights")})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "=> result" in open(tmp_path / "out" / "log.txt").read()
+
+
+def test_cli_default_device_raises_without_cuda(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-m", "clip_calibration_tpu_torch.train",
+         "--trainer", "ZeroshotCLIP", "--output-dir", str(tmp_path)],
+        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr
+    assert not os.listdir(tmp_path)  # failed before doing anything
+
+
+def test_library_constructors_default_to_cuda_and_raise():
+    import numpy as np
+    import torch
+    from clip_calibration_tpu_torch.config import get_cfg_default
+    from clip_calibration_tpu_torch.engine.registry import build_trainer
+    from clip_calibration_tpu_torch.models.backbone import load_clip_backbone
+    from clip_calibration_tpu_torch.trainers.calibration.proximity import (
+        get_knn_dists)
+    import clip_calibration_tpu_torch.trainers  # noqa: F401
+    assert not torch.cuda.is_available()
+    cfg = get_cfg_default()
+    cfg.TRAINER.NAME = "ZeroshotCLIP"
+    for call in (lambda: build_trainer(cfg),
+                 lambda: load_clip_backbone("ViT-Test"),
+                 lambda: get_knn_dists(np.zeros((3, 2)), np.zeros((2, 2)), 1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
