@@ -12,16 +12,25 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    the seeded random init (no accuracy claim): ZeroshotCLIP on the base
    classes -> CoOp eval-only on the base classes -> CoOp on the new classes
    with DAC, on the synthetic dataset (100 classes, 16 shots). Asserts finite
-   metrics and that every tower layer went through the kernel, and records
-   every distinct (qkv shape, heads, dtype, mask) the kernel was given.
-4. ``kernel``: each kernel against its plain PyTorch version on the card at
-   every shape and mask the main path gave it, in bf16 and fp32, with its
-   time, the plain version's, one PyTorch library call's (a yardstick only;
-   the port never calls it) and the least time the card could take
-   (``bound_ms``); then correctness at edge shapes the main path does not
-   reach.
-5. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
+   metrics and that every tower layer went through the forward kernel K1.
+4. ``train_path``: the same CLI trains CoOp (vit_b16_c16_ep200_batch32.yaml
+   cut to 2 epochs: 50 base classes x 16 shots, 25 steps of 32 an epoch),
+   tests it on the base classes, then fits TempScaling (golden stage 4's
+   swap, ep20_lr5e-2.yaml) on the trained model's base val split. Asserts
+   finite losses, metrics and temperature, a changed context, the
+   checkpoints, and that every text layer of every train step went
+   through the backward kernel K2 (12 launches a step).
+5. ``kernel``: each kernel against its plain PyTorch version on the card at
+   every shape and mask the two paths gave it (both record every distinct
+   (qkv shape, heads, dtype, mask)), in bf16 and fp32, with its time, the
+   plain version's, one PyTorch library call's (a yardstick only; the port
+   never calls it) and the least time the card could take (``bound_ms``);
+   then correctness at edge shapes the paths do not reach.
+6. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
    against the same weights on the CPU (plain version), fp32.
+7. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
+   width, fp32, on the card (K1 and K2) against the CPU (plain versions)
+   with the same weights, context and batch.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -55,6 +64,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # the kernel the unnormalised one, and both round the output to bf16
 # (2^-8 relative each).
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# K2 vs its plain version, the same rule. fp32: summation order and expf.
+# bf16: both round P and ds to bf16 before the products that use them, but
+# from fp32 inputs that differ in summation order, so a rounding may flip
+# (2^-8 relative) and sum over L terms; then the output's own bf16 rounding
+TOL_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# the CoOp context gradient, card vs CPU, fp32: max |diff| / max |CPU|
+# (sums in other orders through 12 + 12 layers, forward and backward)
+TRAIN_GRAD_RTOL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -111,19 +128,57 @@ def pad_mask(real: int, padded: int, causal: bool, device):
     return m
 
 
-def _compare(qkv, mask, heads):
-    """(max |kernel - plain|, within tolerance and finite)."""
+def _compare(kernel, plain, tol, *args):
+    """(max |kernel - plain|, within tolerance and finite) on args."""
     import torch
-    from clip_calibration_tpu_torch.ops.mha_qkv import (mha_qkv,
-                                                        mha_qkv_reference)
-    got = mha_qkv(qkv, mask, heads)
+    got = kernel(*args)
     torch.cuda.synchronize()
-    want = mha_qkv_reference(qkv, mask, heads).float()
+    want = plain(*args).float()
     diff = (got.float() - want).abs()
-    atol, rtol = TOL[str(qkv.dtype).split(".")[-1]]
+    atol, rtol = tol[str(args[0].dtype).split(".")[-1]]
     ok = bool(torch.isfinite(got.float()).all()) and bool(
         (diff <= atol + rtol * want.abs()).all())
     return float(diff.max()), ok
+
+
+class Recorder:
+    """Stands in for a kernel's entry point (``fn(qkv, mask, ..., heads)``)
+    and records every distinct (qkv shape, heads, dtype, mask) it is
+    called with, and how often: ``calls`` is a list of [shape, heads,
+    dtype, mask, count]."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+        self._last = (None, None)  # the last call's mask tensor and entry
+
+    def __call__(self, qkv, mask, *args):
+        import torch
+        key = [tuple(qkv.shape), args[-1], qkv.dtype]
+        # the layers of one tower pass share one mask tensor: look it up
+        # (one sync) once per pass
+        if self._last[0] is not mask or self._last[1][:3] != key:
+            entry = next((e for e in self.calls if e[:3] == key
+                          and torch.equal(e[3], mask)), None)
+            if entry is None:
+                entry = key + [mask.clone(), 0]
+                self.calls.append(entry)
+            self._last = (mask, entry)
+        self._last[1][4] += 1
+        return self.fn(qkv, mask, *args)
+
+    def count(self) -> int:
+        return sum(c[4] for c in self.calls)
+
+    # the wrapped kernel's launch counter, which it also bumps through
+    # this stand-in when the stand-in replaces it in its own module
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int):
+        self.fn.launches = value
 
 
 def mask_kind(mask) -> tuple:
@@ -136,11 +191,22 @@ def mask_kind(mask) -> tuple:
     return kind or "none", real
 
 
+# correctness-only shapes the paths do not reach: (B, real L, padded L,
+# D, H, causal)
+EDGES = [
+    (3, 77, 77, 512, 8, True),       # text, unpadded: ragged tiles
+    (2, 257, 257, 1024, 16, False),  # ViT-L/14, unpadded
+    (2, 577, 592, 1024, 16, False),  # ViT-L/14@336px, padded
+    (4, 17, 32, 64, 4, False),       # head dim 16 (ViT-Test text)
+    (2, 50, 50, 256, 8, True),       # head dim 32
+]
+
+
 def check_kernels(device, launched):
     """K1 vs its plain version, timed, at every (qkv shape, heads, mask)
-    the main path launched it with, in bf16 and fp32; then correctness
-    only at the edges the main path does not reach (ragged L, other head
-    dims, the ViT-L sequence lengths)."""
+    the paths launched it with, in bf16 and fp32; then correctness only
+    at the edges the paths do not reach (ragged L, other head dims, the
+    ViT-L sequence lengths)."""
     import torch
     from clip_calibration_tpu_torch.ops.mha_qkv import (mha_qkv,
                                                         mha_qkv_reference)
@@ -155,7 +221,7 @@ def check_kernels(device, launched):
             dname = str(dtype).split(".")[-1]
             qkv = torch.randn((B, L, D3), generator=gen, device=device,
                               dtype=torch.float32).to(dtype)
-            err, ok = _compare(qkv, mask, H)
+            err, ok = _compare(mha_qkv, mha_qkv_reference, TOL, qkv, mask, H)
             d = D // H
             q, k, v = qkv.view(B, L, 3, H, d).permute(2, 0, 3, 1, 4)
             elt = qkv.element_size()
@@ -186,20 +252,13 @@ def check_kernels(device, launched):
             cases.append(rec)
     del flush
 
-    edges = [  # (B, real L, padded L, D, H, causal)
-        (3, 77, 77, 512, 8, True),      # text, unpadded: ragged tiles
-        (2, 257, 257, 1024, 16, False),  # ViT-L/14, unpadded
-        (2, 577, 592, 1024, 16, False),  # ViT-L/14@336px, padded
-        (4, 17, 32, 64, 4, False),       # head dim 16 (ViT-Test text)
-        (2, 50, 50, 256, 8, True),       # head dim 32
-    ]
     errors = []
-    for B, real, L, D, H, causal in edges:
+    for B, real, L, D, H, causal in EDGES:
         mask = pad_mask(real, L, causal, device)
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((B, L, 3 * D), generator=gen, device=device,
                               dtype=torch.float32).to(dtype)
-            err, ok = _compare(qkv, mask, H)
+            err, ok = _compare(mha_qkv, mha_qkv_reference, TOL, qkv, mask, H)
             errors.append({"qkv": [B, L, 3 * D], "heads": H,
                            "dtype": str(dtype).split(".")[-1],
                            "max_abs_err": err, "ok": ok})
@@ -256,62 +315,63 @@ def parse_result(log_path: str) -> dict:
                         "piece")}
 
 
-def run_main_path():
-    """Stages 1-3 through the port's CLI. Returns the kernel's launches
-    and every distinct call it got: [(qkv shape, heads, dtype, mask,
-    calls)]."""
+def _cli_stage(name, args, log):
+    """One run of the port's CLI with its console output sent to a file;
+    returns (seconds, the log's path)."""
     import torch
     from clip_calibration_tpu_torch import train
+    out_dir = args[args.index("--output-dir") + 1]
+    t0 = time.perf_counter()
+    with open(osp.join(WORK, name + ".console.txt"), "w") as con:
+        sys.stdout = con
+        try:
+            train.main(train.build_parser().parse_args(args))
+            torch.cuda.synchronize()
+        finally:
+            sys.stdout = sys.__stdout__
+    return time.perf_counter() - t0, osp.join(out_dir, log)
+
+
+def _checked_metrics(name, log_path):
+    metrics = parse_result(log_path)
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0
+               for v in metrics.values()):
+        raise AssertionError(f"{name}: bad metrics {metrics}")
+    return metrics
+
+
+def _common_args(seed):
+    cfgs = osp.join(ROOT, "configs")
+    return (["--root", osp.join(WORK, "data"), "--seed", str(seed),
+             "--device", "cuda", "--dataset-config-file",
+             osp.join(cfgs, "datasets", "synthetic.yaml")],
+            ["--trainer", "CoOp", "--config-file",
+             osp.join(cfgs, "trainers", "CoOp",
+                      "vit_b16_c16_ep200_batch32.yaml")],
+            ["DATASET.NUM_SHOTS", "16", "DATALOADER.TEST.BATCH_SIZE", "32"])
+
+
+def run_main_path(k1):
+    """Stages 1-3 through the port's CLI, K1's entry point recorded by
+    ``k1``. Returns K1's launches."""
+    import torch
     from clip_calibration_tpu_torch.engine.checkpoint import (
         export_torch_checkpoint)
     from clip_calibration_tpu_torch.models.clip import transformer
-    from clip_calibration_tpu_torch.ops import attention
     from clip_calibration_tpu_torch.ops.mha_qkv import mha_qkv
 
-    launched = []  # [qkv shape, heads, dtype, mask, calls]
-    last = [None, None]  # the last call's mask tensor and its entry
-
-    def recorded(qkv, mask, n_heads):
-        key = [tuple(qkv.shape), n_heads, qkv.dtype]
-        # the layers of one tower forward share one mask tensor: look it
-        # up (one sync) once per forward
-        if last[0] is not mask or last[1][:3] != key:
-            entry = next((e for e in launched if e[:3] == key
-                          and torch.equal(e[3], mask)), None)
-            if entry is None:
-                entry = key + [mask.clone(), 0]
-                launched.append(entry)
-            last[:] = [mask, entry]
-        last[1][4] += 1
-        return mha_qkv(qkv, mask, n_heads)
-
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(osp.join(WORK, "no_weights"))
-    os.environ.update({
-        "CC_SYNTH_CLASSES": "100", "CC_SYNTH_TRAIN": "16",
-        "CC_SYNTH_VAL": "4", "CC_SYNTH_TEST": "4",
-        # an empty weight dir: the seeded random init, printed as such
-        "CLIP_CHECKPOINT_DIR": osp.join(WORK, "no_weights"),
-    })
     gen = torch.Generator().manual_seed(1)
     export_torch_checkpoint(
         {"ctx": torch.randn((16, 512), generator=gen) * 0.02}, 1,
         osp.join(WORK, "coop_model", "prompt_learner", "model.pth.tar-1"))
-
-    cfgs = osp.join(ROOT, "configs")
-    common = ["--root", osp.join(WORK, "data"), "--seed", "1",
-              "--device", "cuda", "--dataset-config-file",
-              osp.join(cfgs, "datasets", "synthetic.yaml")]
-    opts = ["DATASET.NUM_SHOTS", "16", "DATALOADER.TEST.BATCH_SIZE", "32"]
-    coop = ["--trainer", "CoOp", "--config-file",
-            osp.join(cfgs, "trainers", "CoOp",
-                     "vit_b16_c16_ep200_batch32.yaml"),
-            "--model-dir", osp.join(WORK, "coop_model"), "--eval-only",
-            "--load-epoch", "1"]
+    common, coop, opts = _common_args(1)
+    coop = coop + ["--model-dir", osp.join(WORK, "coop_model"),
+                   "--eval-only", "--load-epoch", "1"]
     stages = [
         ("zsclip_base", "log.txt",
          ["--trainer", "ZeroshotCLIP", "--config-file",
-          osp.join(cfgs, "trainers", "ZeroshotCLIP", "vit_b16.yaml")],
+          osp.join(ROOT, "configs", "trainers", "ZeroshotCLIP",
+                   "vit_b16.yaml")],
          ["DATASET.SUBSAMPLE_CLASSES", "base"]),
         ("coop_base", "log.txt", coop, ["DATASET.SUBSAMPLE_CLASSES", "base"]),
         ("coop_new_dac", "log_dac.txt",
@@ -320,48 +380,261 @@ def run_main_path():
               "IF_PROCAL": False})],
          ["DATASET.SUBSAMPLE_CLASSES", "new"]),
     ]
-
-    old_cwd = os.getcwd()
-    os.chdir(WORK)  # the ./temp feature caches are cwd-relative
-    attention.mha_qkv = recorded
     mha_qkv.launches = 0
     transformer.forwards = 0
-    try:
-        for name, log, args, extra in stages:
-            launches0, forwards0 = mha_qkv.launches, transformer.forwards
-            out_dir = osp.join(WORK, "out", name)
-            t0 = time.perf_counter()
-            # the CLI's console output goes to a file, its log as usual
-            with open(osp.join(WORK, name + ".console.txt"), "w") as con:
-                sys.stdout = con
-                train.main(train.build_parser().parse_args(
-                    common + args + ["--output-dir", out_dir] + opts
-                    + extra))
-                torch.cuda.synchronize()
-                sys.stdout = sys.__stdout__
-            seconds = time.perf_counter() - t0
-            metrics = parse_result(osp.join(out_dir, log))
-            if not all(math.isfinite(v) and 0.0 <= v <= 100.0
-                       for v in metrics.values()):
-                raise AssertionError(f"{name}: bad metrics {metrics}")
-            emit("main_path", stage=name, seconds=seconds,
-                 weights="seeded random init (no accuracy claim)",
-                 tower_forwards=transformer.forwards - forwards0,
-                 launches=mha_qkv.launches - launches0, metrics=metrics)
-    finally:
-        attention.mha_qkv = mha_qkv
-        sys.stdout = sys.__stdout__
-        os.chdir(old_cwd)
+    for name, log, args, extra in stages:
+        launches0, forwards0 = mha_qkv.launches, transformer.forwards
+        seconds, log_path = _cli_stage(
+            name, common + args + ["--output-dir",
+                                   osp.join(WORK, "out", name)]
+            + opts + extra, log)
+        emit("main_path", stage=name, seconds=seconds,
+             weights="seeded random init (no accuracy claim)",
+             tower_forwards=transformer.forwards - forwards0,
+             launches=mha_qkv.launches - launches0,
+             metrics=_checked_metrics(name, log_path))
     launches, forwards = mha_qkv.launches, transformer.forwards
     # ViT-B/16: 12 layers in each tower, one fused attention per layer
     if launches == 0 or launches != 12 * forwards:
         raise AssertionError(f"mha_qkv_fwd launched {launches} times for "
                              f"{forwards} tower forwards (want 12 each)")
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    if sum(c[-1] for c in launched) != launches:
+    if k1.count() != launches:
         raise AssertionError("the recorded calls miss kernel launches")
-    return launches, launched
+    return launches
+
+
+def run_train_path(k1, k2):
+    """CoOp training and the TempScaling fit through the port's CLI, K1's
+    and K2's entry points recorded by ``k1`` and ``k2``. Returns (K1
+    launches, K2 launches)."""
+    import torch
+    from clip_calibration_tpu_torch.engine.checkpoint import load_checkpoint
+    from clip_calibration_tpu_torch.models.clip import transformer
+    from clip_calibration_tpu_torch.ops.mha_qkv import mha_qkv, mha_qkv_bwd
+    from clip_calibration_tpu_torch.trainers.coop import CoOp
+
+    # seed 2: the stage-2 eval run's cached seed-1 base features stay out
+    # of this run's calibration (the ZeroshotCLIP cache is seed 1 always)
+    common, coop, opts = _common_args(2)
+    train_dir = osp.join(WORK, "out", "coop_train")
+    scale_dir = osp.join(WORK, "out", "coop_scaling")
+    steps, init_ctx = [0], []
+    build_model, forward_backward = CoOp.build_model, CoOp.forward_backward
+
+    def counted_build(self):
+        build_model(self)
+        init_ctx.append(self.model_params("prompt_learner")["ctx"]
+                        .detach().cpu().clone())
+
+    def counted_step(self, batch):
+        steps[0] += 1
+        return forward_backward(self, batch)
+
+    mha_qkv.launches = mha_qkv_bwd.launches = 0
+    k1_before, k2_before = k1.count(), k2.count()
+    CoOp.build_model, CoOp.forward_backward = counted_build, counted_step
+    try:
+        forwards0 = transformer.forwards
+        seconds, log_path = _cli_stage(
+            "coop_train", common + coop + ["--output-dir", train_dir] + opts
+            + ["OPTIM.MAX_EPOCH", "2", "TRAIN.PRINT_FREQ", "1",
+               "DATASET.SUBSAMPLE_CLASSES", "base"], "log.txt")
+        train_launches = (mha_qkv.launches, mha_qkv_bwd.launches)
+        text = open(log_path).read()
+        losses = [float(x) for x in re.findall(r" loss (\S+) \(", text)]
+        if len(losses) != steps[0] or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"coop_train: losses {losses} for "
+                                 f"{steps[0]} steps")
+        ckpt_path = osp.join(train_dir, "prompt_learner", "model.pth.tar-2")
+        ctx = load_checkpoint(ckpt_path)["state_dict"]["ctx"]
+        ctx_change = float((ctx.float() - init_ctx[0]).abs().max())
+        if not ctx_change > 0:
+            raise AssertionError("coop_train: the context did not change")
+        # ViT-B/16 text tower: 12 layers, each one K2 launch a step
+        if steps[0] != 50 or train_launches[1] != 12 * steps[0]:
+            raise AssertionError(
+                f"coop_train: {steps[0]} steps (want 50) launched "
+                f"mha_qkv_bwd {train_launches[1]} times (want 12 each)")
+        emit("train_path", stage="coop_train", seconds=seconds,
+             weights="seeded random init (no accuracy claim)",
+             steps=steps[0], first_loss=losses[0], last_loss=losses[-1],
+             ctx_max_abs_change=ctx_change, checkpoint=ckpt_path,
+             tower_forwards=transformer.forwards - forwards0,
+             launches={"mha_qkv_fwd": train_launches[0],
+                       "mha_qkv_bwd": train_launches[1]},
+             metrics=_checked_metrics("coop_train", log_path))
+
+        seconds, log_path = _cli_stage(
+            "tempscaling", common + coop + [
+                "--output-dir", scale_dir, "--base-dir", train_dir,
+                "--calibration-config", json.dumps({
+                    "BASE_CALIBRATION_MODE": "scaling_based",
+                    "SCALING_CONFIG": osp.join(
+                        ROOT, "configs", "calibration", "TempScaling",
+                        "ep20_lr5e-2.yaml"),
+                    "IF_DAC": False, "IF_PROCAL": False})] + opts
+            + ["CALIBRATION.SCALING.BASE_EPOCH", "2", "TRAIN.PRINT_FREQ", "1",
+               "DATASET.SUBSAMPLE_CLASSES", "base"], "log_TempScaling.txt")
+        temps = [float(x) for x in re.findall(
+            r"temperature (\S+) \(", open(log_path).read())]
+        ckpt_path = osp.join(scale_dir, "scale_learner",
+                             "model-calibrated.pth.tar-20")
+        if not (temps and all(map(math.isfinite, temps))
+                and osp.exists(ckpt_path)):
+            raise AssertionError(f"tempscaling: temperatures {temps[-3:]}, "
+                                 f"checkpoint {osp.exists(ckpt_path)}")
+        emit("train_path", stage="tempscaling", seconds=seconds,
+             scale_steps=len(temps), temperature=temps[-1],
+             checkpoint=ckpt_path,
+             launches={"mha_qkv_fwd": mha_qkv.launches - train_launches[0],
+                       "mha_qkv_bwd": mha_qkv_bwd.launches
+                       - train_launches[1]},
+             metrics=_checked_metrics("tempscaling", log_path))
+    finally:
+        CoOp.build_model, CoOp.forward_backward = build_model, \
+            forward_backward
+    if (k1.count() - k1_before, k2.count() - k2_before) != (
+            mha_qkv.launches, mha_qkv_bwd.launches):
+        raise AssertionError("the recorded calls miss kernel launches")
+    return mha_qkv.launches, mha_qkv_bwd.launches
+
+
+def check_kernels_bwd(device, launched):
+    """K2 vs its plain version, timed, at every (qkv shape, heads, mask)
+    the train path launched it with, in bf16 and fp32, and at the ViT-B/16
+    vision shape with its pad mask (a later slice's shape); then
+    correctness only at the same edges as K1."""
+    import torch
+    from clip_calibration_tpu_torch.ops.mha_qkv import (
+        mha_qkv_bwd, mha_qkv_bwd_reference)
+    cases = [(shape, H, dtype, mask, calls)
+             for shape, H, dtype, mask, calls in launched]
+    cases.append(((32, 208, 2304), 12, None, pad_mask(197, 208, False,
+                                                      device), 0))
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    out = []
+    for (B, L, D3), H, main_dtype, mask, calls in cases:
+        kind, real = mask_kind(mask)
+        D = D3 // 3
+        d = D // H
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            qkv = torch.randn((B, L, D3), generator=gen, device=device,
+                              dtype=torch.float32).to(dtype)
+            g = torch.randn((B, L, D), generator=gen, device=device,
+                            dtype=torch.float32).to(dtype)
+            err, ok = _compare(mha_qkv_bwd, mha_qkv_bwd_reference, TOL_BWD,
+                               qkv, mask, g, H)
+            # the library yardstick: SDPA's backward on the same q/k/v,
+            # heads split (and the output gradient too) outside the window
+            q, k, v = (t.detach().clone().requires_grad_() for t in
+                       qkv.view(B, L, 3, H, d).permute(2, 0, 3, 1, 4))
+            o = torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask.to(dtype))
+            go = g.view(B, L, H, d).transpose(1, 2).contiguous()
+            elt = qkv.element_size()
+            nbytes = (2 * qkv.numel() + g.numel()) * elt + mask.numel() * 4
+            flops = 10.0 * B * H * L * L * d
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            rec = {
+                "qkv": [B, L, D3], "heads": H, "mask": kind,
+                "real_len": real, "dtype": dname,
+                "main_path_launches": calls if dtype == main_dtype else 0,
+                "max_abs_err": err, "atol": TOL_BWD[dname][0],
+                "rtol": TOL_BWD[dname][1], "ok": ok,
+                "ms": time_ms(lambda: mha_qkv_bwd(qkv, mask, g, H), flush),
+                "plain_ms": time_ms(
+                    lambda: mha_qkv_bwd_reference(qkv, mask, g, H), flush),
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    o, (q, k, v), go, retain_graph=True), flush),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops,
+            }
+            del o
+            emit("kernel mha_qkv_bwd", **rec)
+            if not ok:
+                raise AssertionError(
+                    f"mha_qkv_bwd disagrees with its plain version: {rec}")
+            out.append(rec)
+    del flush
+
+    errors = []
+    for B, real, L, D, H, causal in EDGES:
+        mask = pad_mask(real, L, causal, device)
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn((B, L, 3 * D), generator=gen, device=device,
+                              dtype=torch.float32).to(dtype)
+            g = torch.randn((B, L, D), generator=gen, device=device,
+                            dtype=torch.float32).to(dtype)
+            err, ok = _compare(mha_qkv_bwd, mha_qkv_bwd_reference, TOL_BWD,
+                               qkv, mask, g, H)
+            errors.append({"qkv": [B, L, 3 * D], "heads": H,
+                           "dtype": str(dtype).split(".")[-1],
+                           "max_abs_err": err, "ok": ok})
+    emit("kernel mha_qkv_bwd edges", cases=errors)
+    if not all(e["ok"] for e in errors):
+        raise AssertionError("mha_qkv_bwd disagrees with its plain version "
+                             "at an edge shape")
+    return out
+
+
+def check_train_step(device):
+    """One CoOp loss and context gradient at full ViT-B/16 width, fp32:
+    on the card (K1 forward, K2 backward) vs the CPU (plain versions),
+    same weights, context, prompts and 8 images."""
+    import torch
+    import torch.nn.functional as F
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.models.backbone import load_clip_backbone
+    from clip_calibration_tpu_torch.models.weights import (flat_params,
+                                                           params_from_numpy)
+    from clip_calibration_tpu_torch.trainers.coop import (
+        assemble_prompts, build_prompt_assembly)
+    model, cfg = load_clip_backbone("ViT-B/16", "float32", device)
+    cpu_model = params_from_numpy(flat_params(model), cfg, torch.float32,
+                                  "cpu")
+    gen = torch.Generator().manual_seed(3)
+    images = torch.randn((8, 224, 224, 3), generator=gen)
+    labels = torch.randint(0, 10, (8,), generator=gen)
+    ctx0 = torch.randn((16, 512), generator=gen) * 0.02
+    names = ["red swirl", "green checker", "blue wave", "yellow dot",
+             "purple stripe", "orange grid", "cyan blob", "magenta ring",
+             "white noise", "dark cross"]
+    grads, losses = {}, {}
+    for dev, m in ((device, model), ("cpu", cpu_model)):
+        asm = build_prompt_assembly(names, 16, "end", "", m, torch.float32)
+        ctx = ctx0.to(dev).requires_grad_()
+        txt = M.encode_text_embedded(m, cfg, assemble_prompts(ctx, asm),
+                                     asm["eot_pos"], seq_len=asm["seq_len"])
+        with torch.no_grad():
+            img = M.encode_image(m, cfg, images.to(dev), dtype=torch.float32)
+        loss = F.cross_entropy(M.cosine_logits(img, txt, m.logit_scale),
+                               labels.to(dev))
+        loss.backward()
+        grads[str(dev)], losses[str(dev)] = ctx.grad.cpu(), float(loss.detach())
+    want, got = grads["cpu"], grads[str(device)]
+    rel = float((got - want).abs().max() / want.abs().max())
+    emit("train_check", backbone="ViT-B/16", dtype="float32",
+         loss={"card": losses[str(device)], "cpu": losses["cpu"]},
+         grad_max_rel_diff=rel, rtol=TRAIN_GRAD_RTOL)
+    if not (math.isfinite(rel) and rel <= TRAIN_GRAD_RTOL
+            and float(want.abs().max()) > 0):
+        raise AssertionError(f"CoOp ctx gradient on the card differs from "
+                             f"the CPU by {rel} (relative)")
+
+
+def _kernel_entry(name, source, replaces, launches, cases, **extra):
+    # the top-level numbers: the case the main path launched most often
+    main_case = max(cases, key=lambda c: c["main_path_launches"])
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            **extra, "cases": cases}
 
 
 def main() -> int:
@@ -384,29 +657,55 @@ def main() -> int:
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          nvidia_smi=smi)
 
-    from clip_calibration_tpu_torch.ops import build
+    from clip_calibration_tpu_torch.ops import attention, build
+    from clip_calibration_tpu_torch.ops import mha_qkv as kernels
     seconds = build.build()
-    ptxas = [ln.strip() for name in build.SOURCES
-             for ln in open(build.log_path(name)).read().splitlines()
-             if "registers" in ln or "spill" in ln] if seconds else []
+    ptxas = {name: [ln.strip() for ln in
+                    open(build.log_path(name)).read().splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in build.SOURCES} if seconds else {}
     emit("build", seconds=seconds, kernels=sorted(build.SOURCES),
          ptxas=ptxas)
 
-    launches, launched = run_main_path()
-    cases = check_kernels(device, launched)
-    check_towers(device)
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(osp.join(WORK, "no_weights"))
+    os.environ.update({
+        "CC_SYNTH_CLASSES": "100", "CC_SYNTH_TRAIN": "16",
+        "CC_SYNTH_VAL": "4", "CC_SYNTH_TEST": "4",
+        # an empty weight dir: the seeded random init, printed as such
+        "CLIP_CHECKPOINT_DIR": osp.join(WORK, "no_weights"),
+    })
+    k1 = Recorder(kernels.mha_qkv)
+    k2 = Recorder(kernels.mha_qkv_bwd)
+    old_cwd = os.getcwd()
+    os.chdir(WORK)  # the ./temp feature caches are cwd-relative
+    attention.mha_qkv, kernels.mha_qkv_bwd = k1, k2
+    try:
+        k1_main = run_main_path(k1)
+        k1_train, k2_train = run_train_path(k1, k2)
+    finally:
+        attention.mha_qkv, kernels.mha_qkv_bwd = k1.fn, k2.fn
+        os.chdir(old_cwd)
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
 
-    # the top-level numbers: the case the main path launched most often
-    main_case = max(cases, key=lambda c: c["main_path_launches"])
-    print(json.dumps({"kernels": [{
-        "name": "mha_qkv_fwd", "route": "cuda",
-        "source": "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
-        "replaces": "clip_calibration_tpu/ops/pallas_attention.py:36",
-        "launches": launches,
-        **{k: main_case[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")},
-        "cases": cases,
-    }]}), flush=True)
+    cases_fwd = check_kernels(device, k1.calls)
+    cases_bwd = check_kernels_bwd(device, k2.calls)
+    check_towers(device)
+    check_train_step(device)
+
+    print(json.dumps({"kernels": [
+        _kernel_entry(
+            "mha_qkv_fwd", "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
+            "clip_calibration_tpu/ops/pallas_attention.py:36",
+            k1_main + k1_train, cases_fwd,
+            launches_by_path={"main_path": k1_main, "train_path": k1_train}),
+        _kernel_entry(
+            "mha_qkv_bwd", "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
+            "clip_calibration_tpu/ops/pallas_attention.py:94",
+            k2_train, cases_bwd,
+            launches_by_path={"main_path": 0, "train_path": k2_train}),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,11 @@ Batches are produced by a background prefetch thread (queue depth
 ``PREFETCH_DEPTH``) so host decode/transform of batch N+1 overlaps device
 execution of batch N — the torch reference gets the same overlap from
 DataLoader(num_workers=8). Epoch order is fixed before the thread starts,
-so prefetching never changes which samples land in which batch.
+so prefetching never changes which samples land in which batch. Each
+train item's random crop and flip come from its own ``random.Random``,
+seeded from (loader seed, epoch, the item's place in the epoch order), so
+batches are the same bytes whatever the number of worker threads and
+however they are scheduled.
 """
 
 from __future__ import annotations
@@ -124,13 +128,24 @@ class DataLoader:
                     self._cache_left -= arr.nbytes
         return Image.fromarray(arr)
 
+    def _item_rng(self, pos: int) -> random.Random:
+        """The draws of the item at place ``pos`` of this epoch's order."""
+        return random.Random(
+            (self.seed * 100003 + self.epoch) * 1000003 + pos)
+
     def _make_batch(self, pool, idxs, b):
         bs = self.batch_size
         chunk = idxs[b * bs:(b + 1) * bs]
         items = [self.data_source[i] for i in chunk]
         n_real = len(items)
-        imgs = list(pool.map(
-            lambda it: self.transform(self._decoded(it.impath)), items))
+        if self.is_train:
+            rngs = [self._item_rng(b * bs + j) for j in range(n_real)]
+            imgs = list(pool.map(
+                lambda it, r: self.transform(self._decoded(it.impath), r),
+                items, rngs))
+        else:
+            imgs = list(pool.map(
+                lambda it: self.transform(self._decoded(it.impath)), items))
         labels = np.asarray([it.label for it in items], np.int32)
         if not self.is_train and self.pad_partial and n_real < bs:
             pad = bs - n_real

@@ -8,12 +8,17 @@ fp32 CHW tensors (torchvision pipeline, ``clip/clip.py:74-81``).
 Semantics match torchvision: bicubic shorter-side resize + center crop for
 eval; RandomResizedCrop(scale, ratio 3/4..4/3, 10 attempts) + horizontal
 flip for training (Dassl's ``random_resized_crop``/``random_flip``).
+
+Train transforms draw from a ``random.Random`` the caller passes in, one
+per item (``data/loader.py`` seeds it from the loader seed, the epoch and
+the item's place in the epoch order), so a batch's pixels never depend on
+which worker thread ran which item. Eval transforms draw nothing.
 """
 
 from __future__ import annotations
 
 import random
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 from PIL import Image
@@ -46,20 +51,21 @@ def _center_crop(img: Image.Image, size: Tuple[int, int]) -> Image.Image:
 
 
 def _random_resized_crop(img: Image.Image, size: Tuple[int, int],
-                         scale: Tuple[float, float], interp) -> Image.Image:
+                         scale: Tuple[float, float], interp,
+                         rng: random.Random) -> Image.Image:
     """torchvision RandomResizedCrop: sample area in ``scale`` x img area,
     aspect in log-uniform [3/4, 4/3]; 10 attempts then center fallback."""
     w, h = img.size
     area = w * h
     log_ratio = (np.log(3 / 4), np.log(4 / 3))
     for _ in range(10):
-        target_area = area * random.uniform(*scale)
-        aspect = np.exp(random.uniform(*log_ratio))
+        target_area = area * rng.uniform(*scale)
+        aspect = np.exp(rng.uniform(*log_ratio))
         cw = int(round(np.sqrt(target_area * aspect)))
         ch = int(round(np.sqrt(target_area / aspect)))
         if 0 < cw <= w and 0 < ch <= h:
-            left = random.randint(0, w - cw)
-            top = random.randint(0, h - ch)
+            left = rng.randint(0, w - cw)
+            top = rng.randint(0, h - ch)
             img = img.crop((left, top, left + cw, top + ch))
             return img.resize((size[1], size[0]), interp)
     # fallback: center crop to the constrained aspect; torchvision uses
@@ -76,9 +82,10 @@ def _random_resized_crop(img: Image.Image, size: Tuple[int, int],
     return img.resize((size[1], size[0]), interp)
 
 
-def build_transform(cfg, is_train: bool) -> Callable[[Image.Image],
-                                                     np.ndarray]:
-    """Returns PIL.Image -> uint8 [H, W, 3] transform."""
+def build_transform(cfg, is_train: bool) -> Callable[..., np.ndarray]:
+    """Returns the (PIL.Image, rng) -> uint8 [H, W, 3] transform; ``rng``
+    (a ``random.Random``) is required for train transforms and unused by
+    eval ones."""
     size = tuple(cfg.INPUT.SIZE)
     interp = _PIL_INTERP[cfg.INPUT.INTERPOLATION]
     transforms = tuple(cfg.INPUT.TRANSFORMS)
@@ -96,10 +103,13 @@ def build_transform(cfg, is_train: bool) -> Callable[[Image.Image],
     use_rrc = is_train and "random_resized_crop" in transforms
     use_flip = is_train and "random_flip" in transforms
 
-    def apply(img: Image.Image) -> np.ndarray:
+    def apply(img: Image.Image,
+              rng: Optional[random.Random] = None) -> np.ndarray:
+        if (use_rrc or use_flip) and rng is None:
+            raise ValueError("a train transform needs its random.Random")
         img = img.convert("RGB")
         if use_rrc:
-            img = _random_resized_crop(img, size, scale, interp)
+            img = _random_resized_crop(img, size, scale, interp, rng)
         elif is_train:
             # Dassl's train pipeline without random_resized_crop squash-
             # resizes the full image to INPUT.SIZE (no crop)
@@ -109,7 +119,7 @@ def build_transform(cfg, is_train: bool) -> Callable[[Image.Image],
             # then center-crop to INPUT.SIZE
             img = _resize_shorter(img, max(size), interp)
             img = _center_crop(img, size)
-        if use_flip and random.random() < 0.5:
+        if use_flip and rng.random() < 0.5:
             img = img.transpose(Image.FLIP_LEFT_RIGHT)
         return np.asarray(img, dtype=np.uint8)
 

@@ -4,10 +4,12 @@ Layout matches the reference scripts
 (reference ``trainers/classification/coop.py:318-343``):
 ``<output>/<model-name>/model.pth.tar-<epoch>`` plus ``model-best.pth.tar``.
 Native content is an npz payload (flat ``/``-joined param keys, bf16 as a
-``B::``-prefixed uint16 view, ``__epoch__``), so a checkpoint written by
-either package loads in the other; genuine torch ``.pth.tar`` prompt
-checkpoints of the reference load too, and ``export_torch_checkpoint``
-writes them.
+``B::``-prefixed uint16 view, ``__epoch__``, and the optimizer state as
+optax-ordered leaves under ``__opt__::<i>`` / ``__opt__::B::<i>``, see
+``engine/optim.py::opt_state_leaves``), so a checkpoint written by either
+package, optimizer state included, resumes in the other; genuine torch
+``.pth.tar`` prompt checkpoints of the reference load too, and
+``export_torch_checkpoint`` writes them.
 """
 
 from __future__ import annotations
@@ -51,18 +53,26 @@ def _cpu(v) -> torch.Tensor:
     return to_tensor(v)
 
 
+def _npz_array(t: torch.Tensor) -> tuple:
+    """(key prefix, numpy array): bf16 as a "B::"-prefixed uint16 view."""
+    if t.dtype == torch.bfloat16:
+        return "B::", t.view(torch.int16).numpy().view(np.uint16)
+    return "", t.numpy()
+
+
 def save_checkpoint(state: Dict[str, Any], save_dir: str, epoch: int,
                     is_best: bool = False, model_name: str = "model") -> str:
-    """state: {"state_dict": nested dict of tensors/arrays, "epoch": int}."""
+    """state: {"state_dict": nested dict of tensors/arrays, "epoch": int,
+    "opt_leaves": optional list of optimizer-state tensors}."""
     os.makedirs(save_dir, exist_ok=True)
     arrays = {}
     for k, v in flatten_params(state["state_dict"]).items():
-        t = _cpu(v)
-        if t.dtype == torch.bfloat16:
-            arrays["B::" + k] = t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            arrays[k] = t.numpy()
+        prefix, a = _npz_array(_cpu(v))
+        arrays[prefix + k] = a
     arrays["__epoch__"] = np.asarray(state.get("epoch", epoch))
+    for i, leaf in enumerate(state.get("opt_leaves") or []):
+        prefix, a = _npz_array(_cpu(leaf))
+        arrays[f"__opt__::{prefix}{i}"] = a
     fpath = osp.join(save_dir, f"{model_name}.pth.tar-{epoch}")
     # np.savez appends .npz to string paths; write through a file object
     paths = [fpath] + ([osp.join(save_dir, f"{model_name}-best.pth.tar")]
@@ -107,6 +117,11 @@ def load_checkpoint(fpath: str) -> Dict[str, Any]:
 
 
 def _load_npz(fpath: str) -> Dict[str, Any]:
+    def tensor(a, bf16):
+        if bf16:
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
+
     with open(fpath, "rb") as f:
         data = np.load(io.BytesIO(f.read()), allow_pickle=False)
         if "__epoch__" not in data.files:
@@ -114,18 +129,23 @@ def _load_npz(fpath: str) -> Dict[str, Any]:
             raise ValueError(f"{fpath} is not a native npz checkpoint")
         flat = {}
         epoch = 0
+        opt_leaves: Dict[int, torch.Tensor] = {}
         for k in data.files:
             if k == "__epoch__":
                 epoch = int(data[k])
+            elif k.startswith("__opt__::B::"):
+                opt_leaves[int(k[12:])] = tensor(data[k], True)
             elif k.startswith("__opt__::"):
-                continue  # optimizer state: the eval path has none
+                opt_leaves[int(k[9:])] = tensor(data[k], False)
             elif k.startswith("B::"):
-                flat[k[3:]] = torch.from_numpy(
-                    data[k].view(np.int16)).view(torch.bfloat16)
+                flat[k[3:]] = tensor(data[k], True)
             else:
-                flat[k] = torch.from_numpy(data[k])
-    return {"state_dict": unflatten_params(flat), "epoch": epoch,
-            "native": True}
+                flat[k] = tensor(data[k], False)
+    out = {"state_dict": unflatten_params(flat), "epoch": epoch,
+           "native": True}
+    if opt_leaves:
+        out["opt_leaves"] = [opt_leaves[i] for i in range(len(opt_leaves))]
+    return out
 
 
 def _load_torch(fpath: str) -> Dict[str, Any]:
@@ -138,20 +158,28 @@ def _load_torch(fpath: str) -> Dict[str, Any]:
 
 
 def resolve_model_file(directory: str, epoch: Optional[int] = None,
-                       model_name: str = "model") -> str:
+                       model_name: str = "model",
+                       latest: bool = False) -> str:
     """model.pth.tar-<epoch> when given, else model-best, else the
-    highest-epoch file (reference ``coop.py:312-343`` semantics)."""
+    highest-epoch file (reference ``coop.py:312-343`` semantics).
+
+    ``latest=True`` skips the model-best preference and returns the
+    highest-epoch periodic checkpoint (the resume semantics: resuming a
+    best_val run from model-best would rewind past the epochs trained
+    after it), falling back to model-best when there is none yet."""
     if epoch is not None:
         path = osp.join(directory, f"{model_name}.pth.tar-{epoch}")
         if not osp.exists(path):
             raise FileNotFoundError(f'Checkpoint not found at "{path}"')
         return path
     best = osp.join(directory, f"{model_name}-best.pth.tar")
-    if osp.exists(best):
+    if not latest and osp.exists(best):
         return best
     cands = [f for f in os.listdir(directory)
              if f.startswith(f"{model_name}.pth.tar-")]
     if not cands:
+        if latest and osp.exists(best):
+            return best
         raise FileNotFoundError(
             f"No checkpoint under {directory!r} for {model_name!r}")
     cands.sort(key=lambda f: int(f.rsplit("-", 1)[1]))

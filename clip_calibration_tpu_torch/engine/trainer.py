@@ -1,31 +1,74 @@
-"""Trainer lifecycle engine — the evaluation half.
+"""Trainer lifecycle engine.
 
 Clean-room equivalent of the Dassl ``TrainerX`` surface the reference
 trainers use (reference ``trainers/classification/coop.py:226-343``):
-``build_data_loader`` -> ``build_model`` -> ``test()``, the model
-registry, ``load_model`` with buffer-dropping, metric logging. Training
-(the epoch loop, optimizers, resume) is not ported yet.
+``build_data_loader`` -> ``build_model`` -> ``train()`` epoch loop calling
+``forward_backward`` per batch, per-epoch checkpoints with the optimizer
+state, all-or-nothing auto-resume from ``RESUME`` or the output dir,
+``test()``, the model registry, ``load_model`` with buffer-dropping,
+metric logging. Counterpart of ``clip_calibration_tpu/engine/trainer.py``.
 
 Every trainer lives on one device, named at construction (default
 ``cuda``; asking for it without a card raises). Host batches are staged
-one ahead into the device from pinned memory.
+one ahead into the device from pinned memory. A train step only enqueues
+device work: losses stay device tensors until a print fetches them.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
 import os.path as osp
-from typing import Any, Dict, Optional
+import time
+from collections import defaultdict, deque
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..data.loader import DataManager
 from ..engine.checkpoint import (export_torch_checkpoint, load_checkpoint,
-                                 resolve_model_file)
+                                 resolve_model_file, save_checkpoint)
+from ..engine.optim import (load_opt_state_leaves, opt_state_leaves,
+                            set_lr)
 from ..engine.registry import build_evaluator
 from ..tools.device import resolve_device
+
+
+class MetricMeter:
+    """Running averages for loss printing (Dassl MetricMeter look).
+
+    Takes device scalars and keeps them unfetched until printed: a
+    per-step ``.item()`` would block the host on every train step. At
+    print time the pending values of a metric are stacked and fetched in
+    one copy."""
+
+    def __init__(self, delimiter: str = " "):
+        self.meters = defaultdict(lambda: deque(maxlen=100))
+        self.delimiter = delimiter
+
+    def update(self, metrics: Dict[str, Any]):
+        for k, v in metrics.items():
+            self.meters[k].append(v)
+
+    def _materialize(self):
+        for vals in self.meters.values():
+            idx = [i for i, v in enumerate(vals) if type(v) is not float]
+            if not idx:
+                continue
+            fetched = torch.stack([torch.as_tensor(vals[i]).float()
+                                   .reshape(()) for i in idx]).cpu()
+            for i, x in zip(idx, fetched.tolist()):
+                vals[i] = float(x)
+
+    def __str__(self):
+        self._materialize()
+        parts = []
+        for name, vals in self.meters.items():
+            avg = sum(vals) / len(vals)
+            parts.append(f"{name} {vals[-1]:.4f} ({avg:.4f})")
+        return self.delimiter.join(parts)
 
 
 class TrainerX:
@@ -41,9 +84,13 @@ class TrainerX:
                 f"MODEL.PRECISION must be 'bf16' or 'fp32', got "
                 f"{cfg.MODEL.PRECISION!r}")
         self.check_cfg(cfg)
-        self.epoch = 0
+        self.start_epoch = self.epoch = 0
+        self.max_epoch = cfg.OPTIM.MAX_EPOCH
         self.output_dir = cfg.OUTPUT_DIR
-        # name -> {"params": nested dict of tensors}
+        self.best_result = -np.inf
+        # name -> {"params": nested dict of tensors, "make_optim": builds
+        # the torch optimizer or None, "optim": it once built, "sched":
+        # step -> lr, "step": steps taken}
         self._models: Dict[str, Dict[str, Any]] = {}
         self._scalar_log = None
 
@@ -66,6 +113,11 @@ class TrainerX:
     def build_model(self):
         raise NotImplementedError
 
+    def forward_backward(self, batch) -> Dict[str, Any]:
+        """One train step; returns loss metrics as device scalars (left
+        unfetched: MetricMeter fetches at print time)."""
+        raise NotImplementedError
+
     def model_inference(self, images):
         """images: uint8 [B,H,W,3] device tensor -> (logits,
         image_features, text_features) device tensors."""
@@ -86,16 +138,20 @@ class TrainerX:
     def set_model_mode(self, mode: str):
         pass  # the frozen towers carry no train/eval behaviour
 
-    def train(self):
-        raise NotImplementedError(
-            f"{type(self).__name__}: training is not ported to the torch "
-            "package yet; run with --eval-only")
-
     # -- model registry ----------------------------------------------------
-    def register_model(self, name: str, params: Dict[str, Any]):
+    def register_model(self, name: str, params: Dict[str, Any],
+                       make_optim: Optional[Callable[
+                           [], torch.optim.Optimizer]] = None,
+                       sched=None):
+        """params: nested dict of tensors (the trainable ones are the
+        optimizer's parameters); make_optim: builds the optimizer at its
+        first use (``optimizer``), since the first torch optimizer of a
+        process imports torch._dynamo, seconds an eval-only run need not
+        pay; sched: step -> lr."""
         if name in self._models:
             raise KeyError(f"Model {name!r} already registered")
-        self._models[name] = {"params": params}
+        self._models[name] = {"params": params, "make_optim": make_optim,
+                              "optim": None, "sched": sched, "step": 0}
 
     def get_model_names(self):
         return list(self._models)
@@ -103,9 +159,200 @@ class TrainerX:
     def model_params(self, name: str):
         return self._models[name]["params"]
 
+    def optimizer(self, name: str) -> torch.optim.Optimizer:
+        """``name``'s optimizer, built at the first call."""
+        slot = self._models[name]
+        if slot["optim"] is None:
+            slot["optim"] = slot["make_optim"]()
+        return slot["optim"]
+
+    def optimizer_step(self, name: str):
+        """Step ``name``'s optimizer on the gradients in place, at the
+        lr its schedule gives for the step count (optax's
+        ``scale_by_learning_rate(schedule)``)."""
+        slot = self._models[name]
+        optim = self.optimizer(name)
+        set_lr(optim, slot["sched"](slot["step"]))
+        optim.step()
+        slot["step"] += 1
+
+    # -- train loop ----------------------------------------------------------
+    def train(self):
+        self.before_train()
+        for self.epoch in range(self.start_epoch, self.max_epoch):
+            self.before_epoch()
+            self.run_epoch()
+            self.after_epoch()
+        self.after_train()
+
+    def before_train(self):
+        # Dassl parity: resume from RESUME when given, else from the
+        # output dir itself (re-running an interrupted run picks up its
+        # checkpoints)
+        directory = self.cfg.RESUME or self.output_dir
+        if self._models:
+            self.resume_model_if_exist(directory)
+        os.makedirs(self.output_dir, exist_ok=True)
+        self.time_start = time.time()
+
+    def before_epoch(self):
+        self.train_loader_x.set_epoch(self.epoch)
+
+    def run_epoch(self):
+        meter = MetricMeter()
+        epoch_start = time.time()
+        self.num_batches = len(self.train_loader_x)
+        # forward_backward only enqueues device work (losses are fetched
+        # at print time), so the numbers come from the print window:
+        # printing the meter drains the queue, and the window's wall time
+        # over its steps is the true step time
+        end = window_start = time.time()
+        window_steps = 0
+        window_data = 0.0
+        for self.batch_idx, batch in enumerate(
+                self._device_staged(self.train_loader_x)):
+            window_data += time.time() - end  # decode/prefetch wait
+            meter.update(self.forward_backward(batch))
+            window_steps += 1
+            if ((self.batch_idx + 1) % self.cfg.TRAIN.PRINT_FREQ == 0
+                    or self.num_batches < self.cfg.TRAIN.PRINT_FREQ):
+                msg = str(meter)  # fetches the pending losses (sync)
+                now = time.time()
+                batch_time = (now - window_start) / window_steps
+                data_time = window_data / window_steps
+                nb_left = self.num_batches - self.batch_idx - 1
+                ep_left = self.max_epoch - self.epoch - 1
+                eta = batch_time * (nb_left + ep_left * self.num_batches)
+                eta = str(datetime.timedelta(seconds=int(eta)))
+                print(
+                    f"epoch [{self.epoch + 1}/{self.max_epoch}]"
+                    f"[{self.batch_idx + 1}/{self.num_batches}] "
+                    f"time {batch_time:.3f} data {data_time:.3f} "
+                    f"eta {eta} {msg}")
+                window_start = time.time()
+                window_steps = 0
+                window_data = 0.0
+            end = time.time()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.time() - epoch_start
+        n = max(self.num_batches, 1)
+        print(f"epoch [{self.epoch + 1}/{self.max_epoch}] done in "
+              f"{dt:.1f}s ({dt / n * 1e3:.1f} ms/step, "
+              f"{n * self.cfg.DATALOADER.TRAIN_X.BATCH_SIZE / dt:.0f} "
+              f"img/s)")
+
+    def after_epoch(self):
+        last_epoch = (self.epoch + 1) == self.max_epoch
+        do_test = not self.cfg.TEST.NO_TEST
+        meet_freq = (self.cfg.TRAIN.CHECKPOINT_FREQ > 0 and
+                     (self.epoch + 1) % self.cfg.TRAIN.CHECKPOINT_FREQ == 0)
+        if do_test and self.cfg.TEST.FINAL_MODEL == "best_val":
+            result = self.test(split="val")
+            if result > self.best_result:
+                self.best_result = result
+                self.save_model(self.epoch, self.output_dir, is_best=True)
+        if last_epoch or meet_freq:
+            self.save_model(self.epoch, self.output_dir)
+
+    def after_train(self):
+        print("Finish training")
+        if not self.cfg.TEST.NO_TEST:
+            if self.cfg.TEST.FINAL_MODEL == "best_val":
+                print("Deploy the model with the best val performance")
+                self.load_model(self.output_dir)
+            else:
+                print("Deploy the last-epoch model")
+            self.test()
+        elapsed = round(time.time() - self.time_start)
+        print(f"Elapsed: {datetime.timedelta(seconds=elapsed)}")
+        self.close_writer()
+
     # -- checkpoints ---------------------------------------------------------
-    #: checkpoint filename stem (reference naming)
+    #: checkpoint filename stem; calibration trainers override with
+    #: "model-calibrated" (reference tempscaling.py:305-327 naming)
     checkpoint_model_name = "model"
+
+    def save_model(self, epoch: int, directory: str, is_best: bool = False,
+                   model_name: Optional[str] = None):
+        """Each registered model's params and optimizer state (optax
+        leaf order) as ``<directory>/<name>/<model_name>.pth.tar-<epoch+1>``."""
+        model_name = model_name or self.checkpoint_model_name
+        for name, slot in self._models.items():
+            leaves = None
+            if slot["make_optim"] is not None:
+                leaves = opt_state_leaves(self.cfg, self.optimizer(name),
+                                          slot["params"], slot["step"])
+            save_checkpoint(
+                {"state_dict": slot["params"], "epoch": epoch + 1,
+                 "opt_leaves": leaves},
+                osp.join(directory, name), epoch + 1, is_best=is_best,
+                model_name=model_name)
+
+    def checkpoint_dir_aliases(self, name: str):
+        """Subdirectory names to try when loading (reference trainers use
+        other registered names); the last one names the export dir."""
+        return [name]
+
+    def _resolve_aliased(self, directory: str, name: str,
+                         epoch: Optional[int], model_name: str = "model"):
+        """Model ``name``'s checkpoint file under ``directory``, trying
+        each ``checkpoint_dir_aliases`` subdirectory in order."""
+        for alias in self.checkpoint_dir_aliases(name):
+            try:
+                return resolve_model_file(osp.join(directory, alias),
+                                          epoch, model_name=model_name)
+            except FileNotFoundError:
+                continue
+        raise FileNotFoundError(
+            f"No checkpoint for {name!r} under {directory!r} "
+            f"(tried {self.checkpoint_dir_aliases(name)})")
+
+    def convert_to_reference_state(self, name: str, state: Dict[str, Any]):
+        """Map this trainer's params to the reference's state-dict layout
+        for export. Default identity (CoOp's ``ctx`` shares its name)."""
+        return state
+
+    def resume_model_if_exist(self, directory: str):
+        """All-or-nothing resume: every registered model's checkpoint is
+        loaded and validated before any is applied, so a missing or
+        truncated file (a run killed mid-save) starts fresh instead of
+        crashing or resuming from a mixed state. Restores the optimizer
+        state and the schedule position with the params."""
+        loaded = []
+        for name in self.get_model_names():
+            try:
+                path = resolve_model_file(
+                    osp.join(directory, name), latest=True,
+                    model_name=self.checkpoint_model_name)
+                ckpt = load_checkpoint(path)
+            except FileNotFoundError:
+                print(f"No checkpoint to resume at {directory}")
+                return
+            except Exception as e:  # truncated/corrupt/alien file
+                print(f"Unusable checkpoint for {name!r} at {directory} "
+                      f"({type(e).__name__}: {e}); starting fresh")
+                return
+            loaded.append((name, ckpt["state_dict"], ckpt["epoch"],
+                           ckpt.get("opt_leaves")))
+
+        resumed_epoch = 0
+        for name, state, epoch, leaves in loaded:
+            state.pop("token_prefix", None)
+            state.pop("token_suffix", None)
+            self._set_params(name, state)
+            resumed_epoch = max(resumed_epoch, epoch)
+            slot = self._models[name]
+            if leaves is not None and slot["make_optim"] is not None:
+                try:
+                    slot["step"] = load_opt_state_leaves(
+                        self.cfg, self.optimizer(name), slot["params"],
+                        leaves)
+                except ValueError as e:
+                    print(f"optimizer state mismatch for {name} ({e}); "
+                          "keeping fresh state")
+        self.start_epoch = resumed_epoch
+        print(f"Resumed from {directory} (epoch {resumed_epoch})")
 
     def export_reference_checkpoint(self, directory: str, dst_dir: str,
                                     epoch: Optional[int] = None):
@@ -113,12 +360,16 @@ class TrainerX:
         as a reference-format torch ``.pth.tar`` under ``dst_dir``."""
         written = []
         for name in self.get_model_names():
-            path = resolve_model_file(osp.join(directory, name), epoch,
-                                      model_name=self.checkpoint_model_name)
+            path = self._resolve_aliased(
+                directory, name, epoch, model_name=self.checkpoint_model_name)
             ckpt = load_checkpoint(path)
-            dst = osp.join(dst_dir, name, osp.basename(path))
-            written.append(export_torch_checkpoint(
-                ckpt["state_dict"], ckpt["epoch"], dst))
+            state = ckpt["state_dict"]
+            if ckpt["native"]:
+                state = self.convert_to_reference_state(name, state)
+            ref_name = self.checkpoint_dir_aliases(name)[-1]
+            dst = osp.join(dst_dir, ref_name, osp.basename(path))
+            written.append(export_torch_checkpoint(state, ckpt["epoch"],
+                                                   dst))
             print(f'Exported {name} -> "{dst}" (reference torch format)')
         return written
 
@@ -128,8 +379,7 @@ class TrainerX:
                   "model is given")
             return
         for name in self.get_model_names():
-            path = resolve_model_file(osp.join(directory, name), epoch,
-                                      model_name=self.checkpoint_model_name)
+            path = self._resolve_aliased(directory, name, epoch)
             ckpt = load_checkpoint(path)
             state = ckpt["state_dict"]
             # Ignore fixed token vectors: class sets change between
@@ -142,7 +392,8 @@ class TrainerX:
 
     def _set_params(self, name: str, loaded: Dict[str, Any]):
         """Non-strict merge of loaded tensors into the registered dict,
-        each cast to the registered leaf's dtype and device."""
+        each cast to the registered leaf's dtype and device and copied in
+        place, so an optimizer over the registered tensors keeps them."""
         def merge(dst, src, prefix=""):
             out = {}
             for k, v in dst.items():
@@ -158,7 +409,9 @@ class TrainerX:
                               f"{tuple(t.shape)} != {tuple(v.shape)}")
                         out[k] = v
                     else:
-                        out[k] = t
+                        with torch.no_grad():
+                            v.copy_(t)
+                        out[k] = v
             return out
 
         self._models[name]["params"] = merge(self._models[name]["params"],

@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface (loaded with ``ctypes``; no PyTorch headers, so a build takes
 seconds) under ``build/clip_calibration_tpu_torch/`` at the repository
-root. A library is rebuilt when its source is newer. A failed build
+root, all sources at once (one ``nvcc`` process each, started
+together). A library is rebuilt when its source is newer. A failed build
 raises with the compiler's output; nothing falls back.
 """
 
@@ -23,7 +24,8 @@ BUILD_DIR = osp.join(osp.dirname(PKG_DIR), "build",
                      "clip_calibration_tpu_torch")
 
 #: kernel name -> its source under csrc/
-SOURCES = {"mha_qkv_fwd": "mha_qkv_fwd.cu"}
+SOURCES = {"mha_qkv_fwd": "mha_qkv_fwd.cu",
+           "mha_qkv_bwd": "mha_qkv_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -68,17 +70,24 @@ def build() -> float:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
+    procs = {}
     for name in todo:
         tmp = library_path(name) + f".tmp{os.getpid()}"
-        proc = subprocess.run(
+        log = open(log_path(name), "w")
+        procs[name] = (tmp, log, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, osp.join(CSRC_DIR, SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        with open(log_path(name), "w") as f:
-            f.write(proc.stdout)
+            stdout=log, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, log, proc) in procs.items():
+        proc.wait()
+        log.close()
         if proc.returncode != 0:
-            raise RuntimeError(f"CUDA kernel build failed: {name} (nvcc exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, library_path(name))
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n"
+                          + open(log_path(name)).read())
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return time.perf_counter() - t0
 
 

@@ -5,13 +5,15 @@ carry over:
     python -m clip_calibration_tpu_torch.train --root DATA \
         --trainer CoOp --dataset-config-file configs/datasets/X.yaml \
         --config-file configs/trainers/CoOp/Y.yaml --output-dir OUT \
-        --model-dir CKPT --eval-only [--device cuda] [opts KEY VAL ...]
+        [--model-dir CKPT --eval-only] [--device cuda] [opts KEY VAL ...]
 
 Flow (reference ``train.py:278-356``): defaults -> dataset yaml -> trainer
 yaml -> CLI resets -> calibration JSON -> opts -> freeze; calibrator-combo
-log-file naming; build the trainer from the registry; evaluate. This
-slice runs ZeroshotCLIP and CoOp evaluation (with DAC); training and the
-TempScaling swap come with the training slice.
+log-file naming; the TempScaling trainer swap when the calibration JSON
+asks for ``scaling_based`` with a scaling config; build the trainer from
+the registry; train (checkpoints, auto-resume, final test) or, with
+``--eval-only``, evaluate. Ported: ZeroshotCLIP, CoOp (train and eval,
+with DAC) and TempScaling on a CoOp base.
 """
 
 from __future__ import annotations
@@ -129,6 +131,10 @@ def main(args):
     if cfg.TPU.DISTRIBUTED:
         raise NotImplementedError(
             "multi-process runs are not ported to the torch package yet")
+    if cfg.TPU.PROFILE_DIR:
+        raise NotImplementedError(
+            "step tracing (TPU.PROFILE_DIR) is not ported to the torch "
+            "package yet")
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_random_seed(cfg.SEED)
@@ -153,11 +159,20 @@ def main(args):
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""))
 
+    # trainer swap for temperature scaling (reference train.py:331-339):
+    # the scaling trainer wraps the named trainer as its base; the name is
+    # put back afterwards (the trainer shares this cfg, so its feature
+    # cache paths name the base trainer)
     if cfg.CALIBRATION.SCALING.IF_SCALING:
-        raise NotImplementedError(
-            f"{cfg.CALIBRATION.SCALING.MODE} needs the training slice, "
-            "which is not ported to the torch package yet")
-    trainer = build_trainer(cfg, device=device)
+        cfg = cfg.clone()
+        cfg.defrost()
+        cfg.CALIBRATION.SCALING.BASE_LEARNER = cfg.TRAINER.NAME
+        cfg.TRAINER.NAME = cfg.CALIBRATION.SCALING.MODE
+        trainer = build_trainer(cfg, device=device)
+        cfg.TRAINER.NAME = args.trainer or \
+            cfg.CALIBRATION.SCALING.BASE_LEARNER
+    else:
+        trainer = build_trainer(cfg, device=device)
 
     print_args(args, cfg)
 

@@ -326,3 +326,6 @@ class VLBaseLearner(TrainerX):
             "current_text_features_tuned":
                 np.asarray(current_text_features_tuned),
         }
+
+    def parse_batch_train(self, batch):
+        return batch["img"], batch["label"]

@@ -1,21 +1,26 @@
-"""CoOp: Context Optimization prompts — evaluation.
+"""CoOp: Context Optimization prompt tuning.
 
 Parity target: reference ``trainers/classification/coop.py``.
 Learnable context vectors (unified or class-specific ``CSC``) are spliced
-into pre-embedded class prompts at position end/middle/front; the CLIP
-backbone stays frozen. Prompt assembly is one gather + select over index
-maps built once on the host from the tokenized prompts.
+into pre-embedded class prompts at position end/middle/front; only the
+context trains, the CLIP backbone stays frozen. Prompt assembly is one
+gather + select over index maps built once on the host from the tokenized
+prompts.
 
-This slice evaluates a given context (``--eval-only`` with a checkpoint);
-the train step comes with the training slice, so ``prompt_learner`` is
-registered without an optimizer.
+A train step (``forward_backward``) is the JAX step's dataflow: the text
+tower runs with autograd (the fused attention's backward, kernel K2, in
+every layer), the vision tower forward only under ``torch.no_grad()``
+(nothing in it trains, as ``jax.value_and_grad`` over the ctx prunes it),
+mean cross-entropy of the cosine logits, then the optimizer step.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..engine.optim import build_lr_schedule, build_optimizer
 from ..engine.registry import TRAINER_REGISTRY
 from ..models import clip as M
 from ..models.backbone import load_clip_backbone
@@ -174,7 +179,7 @@ class CoOp(VLBaseLearner):
         return (torch.float32 if self.trainer_cfg().PREC == "fp32"
                 else torch.bfloat16)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def build_model(self):
         cfg = self.cfg
         tcfg = self.trainer_cfg()
@@ -213,7 +218,11 @@ class CoOp(VLBaseLearner):
                   if len(shape) == 3 else "Initializing a generic context")
             ctx = torch.randn(shape, generator=gen, device=self.device) \
                 * 0.02
-        self.register_model("prompt_learner", {"ctx": ctx})
+        ctx.requires_grad_(True)
+        self.register_model(
+            "prompt_learner", {"ctx": ctx},
+            lambda: build_optimizer(cfg, [ctx]),
+            build_lr_schedule(cfg, len(self.train_loader_x)))
         self._cached_text_features = None
 
     def _resolve_ctx_init(self, tcfg) -> str:
@@ -226,23 +235,54 @@ class CoOp(VLBaseLearner):
             return ""
         return ctx_init
 
-    def text_features(self):
-        """Normalized class text features of the current context."""
-        if self._cached_text_features is None:
-            prompts = assemble_prompts(self.model_params(
-                "prompt_learner")["ctx"], self.asm)
-            self._cached_text_features = M.normalize(M.encode_text_embedded(
-                self.clip_model, self.clip_cfg, prompts,
-                self.asm["eot_pos"], seq_len=self.asm["seq_len"]))
-        return self._cached_text_features
+    def _text_features(self, ctx):
+        """Class text features of ``ctx`` (unnormalized; differentiable
+        in ctx outside no_grad)."""
+        prompts = assemble_prompts(ctx, self.asm)
+        return M.encode_text_embedded(self.clip_model, self.clip_cfg,
+                                      prompts, self.asm["eot_pos"],
+                                      seq_len=self.asm["seq_len"])
 
-    def model_inference(self, images):
-        txt_f = self.text_features()
+    def _image_features(self, images):
         dtype = self.compute_dtype
         x = normalize_images(self.put_batch(images), *self.pixel_stats,
                              dtype=dtype)
-        img_f = M.normalize(M.encode_image(self.clip_model, self.clip_cfg,
-                                           x, dtype=dtype))
+        return M.encode_image(self.clip_model, self.clip_cfg, x,
+                              dtype=dtype)
+
+    def text_features(self):
+        """Normalized class text features of the current context, cached
+        until the context changes."""
+        if self._cached_text_features is None:
+            with torch.no_grad():
+                self._cached_text_features = M.normalize(
+                    self._text_features(self.model_params(
+                        "prompt_learner")["ctx"]))
+        return self._cached_text_features
+
+    # -- train ------------------------------------------------------------
+    def _loss(self, images, labels):
+        """Mean cross-entropy of the cosine logits (JAX ``CoOp._loss``)."""
+        txt_f = self._text_features(self.model_params("prompt_learner")
+                                    ["ctx"])
+        with torch.no_grad():
+            img_f = self._image_features(images)
+        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale)
+        return F.cross_entropy(logits, labels.long())
+
+    def forward_backward(self, batch):
+        images, labels = self.parse_batch_train(batch)
+        self.optimizer("prompt_learner").zero_grad(set_to_none=True)
+        loss = self._loss(images, self.put_batch(labels))
+        loss.backward()
+        self.optimizer_step("prompt_learner")
+        self._cached_text_features = None  # ctx changed
+        return {"loss": loss.detach()}
+
+    # -- eval ---------------------------------------------------------------
+    def model_inference(self, images):
+        txt_f = self.text_features()
+        img_f = M.normalize(self._image_features(images))
         scale = torch.exp(self.clip_model.logit_scale.float())
         logits = scale * (img_f.float() @ txt_f.float().T)
         return logits, img_f, txt_f

@@ -24,7 +24,7 @@ from .templates import CUSTOM_TEMPLATES
 class ZeroshotCLIP(VLBaseLearner):
     fused_dac_scoring = True
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def build_model(self):
         cfg = self.cfg
         classnames = self.dm.dataset.classnames

@@ -1,4 +1,4 @@
-"""Stages 1-3 of tests/test_golden_e2e.py through the port's CLI.
+"""Stages 1-4 of tests/test_golden_e2e.py through the port's CLI.
 
 ``python -m clip_calibration_tpu_torch.train --device cpu`` on the same
 fixture (tiny real-image dataset, shared seeded ViT-Test checkpoint,
@@ -44,6 +44,14 @@ STAGES = [  # (golden key, output dir, log file, flags, subsample)
      COOP + ["--calibration-config", json.dumps(
          {"BASE_CALIBRATION_MODE": None, "IF_DAC": True,
           "IF_PROCAL": False})], "new"),
+    # TempScaling fitted on the val split of the CoOp base model
+    ("coop_base_tempscaled", "out/coop_scaling", "log_TempScaling.txt",
+     ["--trainer", "CoOp", "--base-dir", osp.join(FIX, "coop_model"),
+      "--calibration-config", json.dumps(
+          {"BASE_CALIBRATION_MODE": "scaling_based",
+           "SCALING_CONFIG": osp.join(REPO, "configs", "calibration",
+                                      "TempScaling", "ep20_lr5e-2.yaml"),
+           "IF_DAC": False, "IF_PROCAL": False})], "base"),
 ]
 
 
@@ -57,8 +65,9 @@ def _parse_result(log_path):
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    """Runs the three stages in order (each feeds the next through the
-    ./temp caches) and returns each stage's parsed metrics."""
+    """Runs the four stages in order (each feeds the next through the
+    ./temp caches) and returns each stage's parsed metrics, and the last
+    temperature the scaling stage logged."""
     wd = tmp_path_factory.mktemp("torch_golden_e2e")
     shutil.copytree(osp.join(FIX, "data", "caltech-101"),
                     wd / "data" / "caltech-101")
@@ -74,6 +83,10 @@ def results(tmp_path_factory):
             timeout=600)
         assert r.returncode == 0, f"{key}:\n{r.stderr[-3000:]}"
         out[key] = _parse_result(osp.join(str(wd), out_dir, log))
+    temps = re.findall(r"temperature (\d+\.\d+)",
+                       open(osp.join(str(wd), "out", "coop_scaling",
+                                     "log_TempScaling.txt")).read())
+    out["temperature"] = float(temps[-1]) if temps else None
     out["workdir"] = str(wd)
     return out
 
@@ -98,3 +111,11 @@ def test_eval_only_exports_reference_checkpoint(results):
     assert got["epoch"] == want["epoch"]
     assert torch.equal(got["state_dict"]["ctx"],
                        want["state_dict"]["ctx"].float())
+
+
+def test_tempscaling_temperature_matches_reference(results):
+    """Stage 4's fitted temperature (tests/test_golden_e2e.py: 2e-3)."""
+    want = GOLDEN["tempscaling_temperature"]
+    assert results["temperature"] is not None, "no temperature lines logged"
+    assert abs(results["temperature"] - want) < 2e-3, (
+        results["temperature"], want)

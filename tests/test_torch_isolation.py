@@ -4,6 +4,7 @@ never falls back to the CPU on its own."""
 
 import ast
 import glob
+import json
 import os
 import os.path as osp
 import subprocess
@@ -41,6 +42,7 @@ def test_no_jax_imports(path):
 def test_port_has_its_own_assets():
     assert osp.exists(osp.join(PORT, "assets", "bpe_simple_vocab_16e6.txt.gz"))
     assert osp.exists(osp.join(PORT, "csrc", "mha_qkv_fwd.cu"))
+    assert osp.exists(osp.join(PORT, "csrc", "mha_qkv_bwd.cu"))
 
 
 _BLOCKER = textwrap.dedent("""
@@ -59,6 +61,10 @@ _BLOCKER = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Blocker())
+    # as on a machine without them: importlib.util.find_spec probes (torch
+    # makes some) answer None, and an import raises ModuleNotFoundError
+    for name in Blocker.names:
+        sys.modules[name] = None
 """)
 
 
@@ -82,7 +88,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
             f = M.encode_image(model, cfg, torch.zeros(2, 32, 32, 3),
                                dtype=torch.float32)
         assert f.shape == (2, 32) and bool(torch.isfinite(f).all())
-        assert "jax" not in sys.modules
+        assert sys.modules["jax"] is None  # never imported
         print("ok")
     """)
     r = _run(code, str(tmp_path),
@@ -115,6 +121,49 @@ def test_cli_stage_runs_with_jax_and_sklearn_blocked(tmp_path):
              {"CLIP_CHECKPOINT_DIR": osp.join(FIX, "weights")})
     assert r.returncode == 0, r.stderr[-3000:]
     assert "=> result" in open(tmp_path / "out" / "log.txt").read()
+
+
+def test_cli_training_runs_with_jax_and_sklearn_blocked(tmp_path):
+    """The training slice of the CLI: a ZeroshotCLIP base run, one CoOp
+    training epoch (optimizer, checkpoint, final test) and a TempScaling
+    fit on it, without jax, sklearn or matplotlib."""
+    flags = ["--device", "cpu", "--seed", "1", "--backbone", "ViT-Test",
+             "--root", "data", "--dataset-config-file",
+             osp.join(REPO, "configs", "datasets", "synthetic.yaml")]
+    opts = ["DATASET.NUM_SHOTS", "4", "INPUT.SIZE", "(32, 32)",
+            "DATASET.SUBSAMPLE_CLASSES", "base"]
+    coop = ["--trainer", "CoOp", "--config-file",
+            osp.join(REPO, "configs", "trainers", "CoOp",
+                     "vit_test_ep3.yaml"), "--output-dir", "out/coop"]
+    scaling = json.dumps({
+        "BASE_CALIBRATION_MODE": "scaling_based",
+        "SCALING_CONFIG": osp.join(REPO, "configs", "calibration",
+                                   "TempScaling", "ep5_lr5e-2.yaml"),
+        "IF_DAC": False, "IF_PROCAL": False})
+    runs = [  # (flags, opts) of each run
+        (["--trainer", "ZeroshotCLIP", "--output-dir", "out/zs"], []),
+        (coop, ["OPTIM.MAX_EPOCH", "1"]),
+        (coop + ["--base-dir", "out/coop", "--calibration-config",
+                 scaling], ["CALIBRATION.SCALING.BASE_EPOCH", "1"]),
+    ]
+    code = textwrap.dedent(f"""
+        import runpy
+        for run_flags, run_opts in {runs!r}:
+            sys.argv = (["train"] + {flags!r} + run_flags + {opts!r}
+                        + run_opts)
+            runpy.run_module("clip_calibration_tpu_torch.train",
+                             run_name="__main__")
+            sys.stdout = sys.__stdout__
+        assert sys.modules["jax"] is None and sys.modules["sklearn"] is None
+    """)
+    r = _run(code, str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert osp.exists(tmp_path / "out" / "coop" / "prompt_learner" /
+                      "model.pth.tar-1")
+    assert osp.exists(tmp_path / "out" / "coop" / "scale_learner" /
+                      "model-calibrated.pth.tar-5")
+    log = open(tmp_path / "out" / "coop" / "log_TempScaling.txt").read()
+    assert "temperature" in log and "=> result" in log
 
 
 def test_cli_default_device_raises_without_cuda(tmp_path):
