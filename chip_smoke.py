@@ -26,11 +26,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    plain version's, one PyTorch library call's (a yardstick only; the port
    never calls it) and the least time the card could take (``bound_ms``);
    then correctness at edge shapes the paths do not reach.
-6. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
+6. ``serve_path``: the port's serve CLI at ViT-B/16 (bf16, random init)
+   on 84 synthetic images at 224^2 (one full 64-image batch and a 32-row
+   bucket) and on one image (the 1-row bucket), in four quantization modes:
+   full precision, ``--quantize int8``, ``--quantize w8a8`` calibrating
+   and saving static scales, ``--quantize w8a8 --act-scales`` (bit for bit
+   the previous run); the CoOp checkpoint of ``train_path`` through
+   ``--coop-prompt --quantize w8a8``; an HTTP server over a w8a8
+   predictor answering concurrent single images and one JSON batch, held
+   to direct ``predict``; one eval-only CoOp stage of the train CLI with
+   ``TRAINER.QUANT_FROZEN_VISION w8a8``. Asserts finite outputs, K3
+   launched 50 times per w8a8 image forward and K1 in every layer.
+7. ``kernel int8_matmul``: K3 against its plain version (exact) at every
+   (M, K, N) the serve path launched and at edge shapes, with its time,
+   the plain version's, ``torch._int_mm``'s and the bound.
+8. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
    against the same weights on the CPU (plain version), fp32.
-7. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
+9. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
    width, fp32, on the card (K1 and K2) against the CPU (plain versions)
    with the same weights, context and batch.
+10. ``serve_check``: the w8a8 ViT-B/16 vision tower with static scales on
+   the card (K3) against the same int8 weights and scales on the CPU (the
+   plain version), fp32, by the features' cosine similarity.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the port's
@@ -56,7 +73,7 @@ WORK = osp.join(ROOT, "build", "chip_smoke")
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # FLOP/s by operand type (fp32 outside the tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # kernel vs plain version, |diff| <= ATOL + RTOL * |plain|. fp32: the two
 # sum in different orders and the kernel uses expf. bf16: the plain
@@ -72,6 +89,18 @@ TOL_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # the CoOp context gradient, card vs CPU, fp32: max |diff| / max |CPU|
 # (sums in other orders through 12 + 12 layers, forward and backward)
 TRAIN_GRAD_RTOL = 1e-3
+# the w8a8 vision tower, card vs CPU, fp32, per image: 1 - cos(features).
+# The int8 products are exact on both sides, but the float work between
+# them (LayerNorm, attention, GELU) sums in other orders (~1e-7 relative),
+# and a value on a rounding boundary of an activation quantization then
+# moves by a whole int8 step; the seeded random tower amplifies those
+# steps (serve_check prints how far 1e-7 relative noise after every
+# LayerNorm moves it on the CPU alone: about 1e-4). Hence 1e-3; each w8a8
+# product is also held bit for bit to the CPU on the card's own input
+SERVE_COS_TOL = 1e-3
+# the serve path's model and card (module constants, so the path can be
+# rehearsed on the CPU at ViT-Test size)
+SERVE_BACKBONE, SERVE_DEVICE, SERVE_RES = "ViT-B/16", "cuda", 224
 
 
 def emit(phase: str, **fields) -> None:
@@ -626,6 +655,467 @@ def check_train_step(device):
                              f"the CPU by {rel} (relative)")
 
 
+class ShapeRecorder:
+    """Stands in for ``int8_matmul(x, w)`` and counts its calls by
+    (M, K, N): ``calls`` maps the shape to the count."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = {}
+
+    def __call__(self, x, w):
+        key = (x.shape[0], x.shape[1], w.shape[1])
+        self.calls[key] = self.calls.get(key, 0) + 1
+        return self.fn(x, w)
+
+    def count(self) -> int:
+        return sum(self.calls.values())
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int):
+        self.fn.launches = value
+
+
+class ForwardCounter:
+    """Stands in for ``models.clip.encode_image`` and counts its calls by
+    qmode."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.by_qmode = {}
+
+    def __call__(self, *args, **kwargs):
+        q = kwargs.get("qmode", "dequant")
+        self.by_qmode[q] = self.by_qmode.get(q, 0) + 1
+        return self.fn(*args, **kwargs)
+
+    def int8_forwards(self) -> int:
+        return sum(n for q, n in self.by_qmode.items() if q != "dequant")
+
+
+def _serve_images(n_test: int, n_cal: int):
+    """SERVE_RES^2 PNGs of the synthetic dataset's classes (its 64^2 renders,
+    bicubic-resized): ``n_test`` to serve (test samples), ``n_cal`` to
+    calibrate on (train samples), one alone; returns the three dirs."""
+    from PIL import Image
+    from clip_calibration_tpu_torch.data.datasets.synthetic import _render
+    dirs = {}
+    for name, count, offset in (("imgs", n_test, 20), ("cal", n_cal, 0),
+                                ("one", 1, 23)):
+        d = osp.join(WORK, "serve", name)
+        os.makedirs(d)
+        for i in range(count):
+            img = Image.fromarray(_render(i % 50, offset + i // 50))
+            img.resize((SERVE_RES, SERVE_RES), Image.BICUBIC).save(
+                osp.join(d, f"img_{i:03d}.png"))
+        dirs[name] = d
+    return dirs
+
+
+def _serve_cli(name, args):
+    """One in-process run of the port's serve CLI, console to a file;
+    returns (seconds, its JSONL rows)."""
+    import torch
+    from clip_calibration_tpu_torch import serve
+    out = osp.join(WORK, "serve", name + ".jsonl")
+    t0 = time.perf_counter()
+    with open(osp.join(WORK, "serve", name + ".console.txt"), "w") as con:
+        sys.stdout = con
+        try:
+            rc = serve.main(["--device", SERVE_DEVICE,
+                             "--backbone", SERVE_BACKBONE,
+                             "--batch-size", "64", "--topk", "5",
+                             "--out", out, *args])
+            torch.cuda.synchronize()
+        finally:
+            sys.stdout = sys.__stdout__
+    if rc != 0:
+        raise AssertionError(f"serve CLI {name}: exit {rc}")
+    rows = [json.loads(ln) for ln in open(out)]
+    if not all(math.isfinite(r["confidence"]) and 0 < r["confidence"] <= 1
+               and all(math.isfinite(t["prob"]) for t in r["topk"])
+               for r in rows):
+        raise AssertionError(f"serve CLI {name}: non-finite output")
+    return time.perf_counter() - t0, rows
+
+
+def _http_round(pred, classnames, images, blobs):
+    """serve_http over ``pred``: 8 concurrent single images, then one JSON
+    batch of 8; every answer held to a direct ``predict`` of the batch the
+    server served it in (recorded by wrapping ``pred.predict``)."""
+    import base64
+    import threading
+    import urllib.request
+    from clip_calibration_tpu_torch.config import get_cfg_default
+    from clip_calibration_tpu_torch.data.transforms import build_transform
+    from clip_calibration_tpu_torch.http_server import serve_http
+    served = []
+    direct = pred.predict
+
+    def recorded(batch):
+        out = direct(batch)
+        served.append((batch.copy(), out))
+        return out
+
+    pred.predict = recorded
+    cfg = get_cfg_default()
+    cfg.INPUT.INTERPOLATION = "bicubic"
+    cfg.INPUT.SIZE = (SERVE_RES, SERVE_RES)
+    srv = serve_http(":0", pred, classnames,
+                     build_transform(cfg, is_train=False), topk=1,
+                     max_wait_ms=20.0, backbone=SERVE_BACKBONE)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    host, port = srv.server_address[:2]
+
+    def post(body, ctype):
+        req = urllib.request.Request(
+            f"http://{host}:{port}/predict", data=body,
+            headers={"Content-Type": ctype}, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    try:
+        answers, errors = {}, []
+
+        def hit(i):
+            try:
+                answers[i] = post(blobs[i], "image/png")
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        body = json.dumps({"images": [base64.b64encode(b).decode()
+                                      for b in blobs[8:16]]}).encode()
+        batch_rows = post(body, "application/json")["predictions"]
+        with urllib.request.urlopen(f"http://{host}:{port}/stats",
+                                    timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        pred.predict = direct
+    if errors or len(answers) != 8:
+        raise AssertionError(f"HTTP requests failed: {errors}")
+    # the server's batches, predicted again directly: the same bits
+    for batch, out in served:
+        again = direct(batch)
+        if not np_equal(again["probs"], out["probs"]):
+            raise AssertionError("HTTP batch differs from direct predict")
+
+    def expected(img):
+        for batch, out in served:
+            for j in range(batch.shape[0]):
+                if np_equal(batch[j], img):
+                    return {"pred": classnames[int(out["preds"][j])],
+                            "confidence": round(
+                                float(out["confidences"][j]), 6)}
+        raise AssertionError("an HTTP image was never served")
+
+    got = [answers[i] for i in range(8)] + batch_rows
+    for i, row in enumerate(got):
+        if row != expected(images[i]):
+            raise AssertionError(f"HTTP answer {i} {row} differs from "
+                                 f"direct predict {expected(images[i])}")
+    return {"requests": stats["requests"], "batches": stats["batches"],
+            "mean_batch": stats["mean_batch"],
+            "batch_sizes": [b.shape[0] for b, _ in served],
+            "p50_latency_ms": stats["p50_latency_ms"]}
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def run_serve_path(k1, k3):
+    """The serving slice at ViT-B/16 (see the module docstring), K1's and
+    K3's entry points recorded by ``k1`` and ``k3``. Returns (K1
+    launches, K3 launches)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from clip_calibration_tpu_torch import serving
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.ops.int8_matmul import int8_matmul
+    from clip_calibration_tpu_torch.ops.mha_qkv import mha_qkv
+
+    dirs = _serve_images(84, 16)
+    from clip_calibration_tpu_torch.data.datasets.synthetic import _classname
+    classnames = [_classname(c) for c in range(50)]
+    names_file = osp.join(WORK, "serve", "classes.txt")
+    with open(names_file, "w") as f:
+        f.write("\n".join(classnames) + "\n")
+    common = ["--classnames-file", names_file]
+    scales = osp.join(WORK, "serve", "act_scales.npz")
+    modes = [
+        ("full", []),
+        ("int8", ["--quantize", "int8"]),
+        ("w8a8_calibrate", ["--quantize", "w8a8", "--calibration-images",
+                            dirs["cal"]]),
+        ("w8a8_act_scales", ["--quantize", "w8a8", "--act-scales", scales]),
+    ]
+    fwd = ForwardCounter(M.encode_image)
+    probs = []
+    predict = serving.Predictor.predict
+
+    def recorded(self, images):
+        out = predict(self, images)
+        probs.append(out["probs"])
+        return out
+
+    mha_qkv.launches = int8_matmul.launches = 0
+    forwards0 = M.transformer.forwards
+    k1_before, k3_before = k1.count(), k3.count()
+    M.encode_image, serving.Predictor.predict = fwd, recorded
+    results = {}
+    try:
+        for name, flags in modes:
+            extra = (["--save-act-scales", scales]
+                     if name == "w8a8_calibrate" else [])
+            int8_0, fwd_0 = int8_matmul.launches, fwd.int8_forwards()
+            sec, rows = _serve_cli(name, common + flags + extra
+                                   + ["--images", dirs["imgs"]])
+            sec1, one = _serve_cli(name + "_b1", common + flags
+                                   + ["--images", dirs["one"]])
+            results[name] = {"rows": rows, "probs": probs[-2],
+                             "probs_b1": probs[-1]}
+            emit("serve_path", stage=name, seconds=sec, seconds_b1=sec1,
+                 images=len(rows), weights="seeded random init (no "
+                 "accuracy claim)", int8_image_forwards=fwd.int8_forwards()
+                 - fwd_0, launches={"int8_matmul": int8_matmul.launches
+                                    - int8_0},
+                 first=rows[0], b1=one[0])
+        a, b = results["w8a8_calibrate"], results["w8a8_act_scales"]
+        if not (np_equal(a["probs"], b["probs"])
+                and np_equal(a["probs_b1"], b["probs_b1"])
+                and a["rows"] == b["rows"]):
+            raise AssertionError("--act-scales run differs from the run "
+                                 "that calibrated and saved the scales")
+        top1 = [r["pred"] for r in results["full"]["rows"]]
+        agree = {m: float(np.mean([r["pred"] == t for r, t in zip(
+            results[m]["rows"], top1)])) for m in results}
+        emit("serve_path", stage="agreement",
+             top1_agreement_with_full_precision=agree,
+             w8a8_act_scales_equal_to_calibrate="bit for bit",
+             note="random weights: agreement is no accuracy claim")
+
+        int8_0 = int8_matmul.launches
+        sec, rows = _serve_cli("coop_prompt_w8a8", common + [
+            "--quantize", "w8a8", "--act-scales", scales,
+            "--checkpoint-dir", osp.join(WORK, "out", "coop_train"),
+            "--coop-prompt", "--epoch", "2", "--images", dirs["imgs"]])
+        emit("serve_path", stage="coop_prompt_w8a8", seconds=sec,
+             images=len(rows), launches={"int8_matmul":
+                                         int8_matmul.launches - int8_0},
+             first=rows[0])
+
+        int8_0 = int8_matmul.launches
+        t0 = time.perf_counter()
+        with open(osp.join(WORK, "serve", "http.console.txt"), "w") as con:
+            sys.stdout = con
+            try:
+                pred = serving.Predictor(
+                    SERVE_BACKBONE, classnames, quantize="w8a8",
+                    act_scales=scales, batch_size=64, device=SERVE_DEVICE)
+            finally:
+                sys.stdout = sys.__stdout__
+        paths = sorted(os.listdir(dirs["imgs"]))[:16]
+        blobs = [open(osp.join(dirs["imgs"], p), "rb").read() for p in paths]
+        images = [np.asarray(Image.open(osp.join(dirs["imgs"], p))
+                             .convert("RGB")) for p in paths]
+        http = _http_round(pred, classnames, images, blobs)
+        torch.cuda.synchronize()
+        emit("serve_path", stage="http", seconds=time.perf_counter() - t0,
+             launches={"int8_matmul": int8_matmul.launches - int8_0},
+             **http)
+
+        common_t, coop, opts = _common_args(1)
+        int8_0, fwd_0 = int8_matmul.launches, fwd.int8_forwards()
+        seconds, log_path = _cli_stage(
+            "coop_base_w8a8", common_t + coop + [
+                "--model-dir", osp.join(WORK, "coop_model"), "--eval-only",
+                "--load-epoch", "1", "--output-dir",
+                osp.join(WORK, "out", "coop_base_w8a8")] + opts
+            + ["DATASET.SUBSAMPLE_CLASSES", "base",
+               "TRAINER.QUANT_FROZEN_VISION", "w8a8"], "log.txt")
+        emit("serve_path", stage="coop_base_quant_frozen_vision_w8a8",
+             seconds=seconds, int8_image_forwards=fwd.int8_forwards() - fwd_0,
+             launches={"int8_matmul": int8_matmul.launches - int8_0},
+             metrics=_checked_metrics("coop_base_w8a8", log_path))
+    finally:
+        M.encode_image, serving.Predictor.predict = fwd.fn, predict
+    # one fused attention per layer of every tower forward; int8 matmuls
+    # per w8a8 image forward: 4 in each block, the patch embedding and the
+    # projection (ViT-B/16: 50)
+    layers = M.PRESETS[SERVE_BACKBONE].vision_layers
+    forwards = M.transformer.forwards - forwards0
+    if mha_qkv.launches != layers * forwards or forwards == 0:
+        raise AssertionError(f"mha_qkv_fwd launched {mha_qkv.launches} times "
+                             f"for {forwards} tower forwards (want "
+                             f"{layers} each)")
+    w8a8_forwards = fwd.int8_forwards()
+    if int8_matmul.launches != (4 * layers + 2) * w8a8_forwards \
+            or w8a8_forwards == 0:
+        raise AssertionError(
+            f"int8_matmul launched {int8_matmul.launches} times for "
+            f"{w8a8_forwards} w8a8 image forwards (want {4 * layers + 2} "
+            f"each)")
+    if (k1.count() - k1_before, k3.count() - k3_before) != (
+            mha_qkv.launches, int8_matmul.launches):
+        raise AssertionError("the recorded calls miss kernel launches")
+    emit("serve_path", stage="totals", tower_forwards=forwards,
+         w8a8_image_forwards=w8a8_forwards,
+         image_forwards_by_qmode=fwd.by_qmode,
+         launches={"mha_qkv_fwd": mha_qkv.launches,
+                   "int8_matmul": int8_matmul.launches})
+    return mha_qkv.launches, int8_matmul.launches
+
+
+# correctness and time at shapes the serve path does not reach: (M, K, N)
+K3_EDGES = [
+    (33, 70, 129),              # every dimension ragged, no vector loads
+    (8, 8, 8),                  # smaller than one tile
+    (1, 768, 2304),             # M = 1
+    (64 * 272, 1024, 3072),     # ViT-L/14 at batch 64: wqkv
+    (64 * 272, 1024, 4096),     # ViT-L/14: w_fc
+    (64 * 272, 4096, 1024),     # ViT-L/14: w_proj
+]
+
+
+def check_int8_matmul(device, launched):
+    """K3 against its plain version (exact) at every (M, K, N) the serve
+    path launched and at ``K3_EDGES``: its time, the plain version's,
+    ``torch._int_mm``'s (cuBLASLt, a yardstick the port never calls;
+    null where its shape rules refuse) and the bound."""
+    import torch
+    from clip_calibration_tpu_torch.ops.int8_matmul import (
+        int8_matmul, int8_matmul_reference)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device).manual_seed(4)
+    cases = [(shape, n) for shape, n in sorted(launched.items())] + \
+        [(shape, 0) for shape in K3_EDGES if shape not in launched]
+    out = []
+    for (M, K, N), calls in cases:
+        x = torch.randint(-127, 128, (M, K), generator=gen, device=device,
+                          dtype=torch.int32).to(torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device=device,
+                          dtype=torch.int32).to(torch.int8)
+        got = int8_matmul(x, w)
+        torch.cuda.synchronize()
+        want = int8_matmul_reference(x, w)
+        exact = bool(torch.equal(got, want))
+        err = float((got.double() - want.double()).abs().max())
+        try:
+            torch._int_mm(x, w)
+            library_ms = time_ms(lambda: torch._int_mm(x, w), flush)
+        except RuntimeError:
+            library_ms = None
+        nbytes = M * K + K * N + 4 * M * N
+        ops = 2.0 * M * N * K
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS["int8"] * 1e3
+        rec = {"mkn": [M, K, N], "main_path_launches": calls,
+               "exact": exact, "max_abs_err": err,
+               "ms": time_ms(lambda: int8_matmul(x, w), flush),
+               "plain_ms": time_ms(lambda: int8_matmul_reference(x, w),
+                                   flush),
+               "library_ms": library_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "ops": ops}
+        emit("kernel int8_matmul", **rec)
+        if not exact:
+            raise AssertionError(
+                f"int8_matmul disagrees with its plain version: {rec}")
+        out.append(rec)
+    del flush
+    return out
+
+
+def check_serve_tower(device):
+    """The w8a8 ViT-B/16 vision tower with static scales calibrated on the
+    card: features on the card (K3) vs the same int8 weights and scales
+    on the CPU (plain version), fp32, 2 images; and each of the tower's
+    50 w8a8 products (quantize, K3, rescale) on the CPU from the card's
+    own input, bit for bit."""
+    import torch
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.models.backbone import load_clip_backbone
+    from clip_calibration_tpu_torch.models.weights import (flat_params,
+                                                           params_from_numpy)
+    from clip_calibration_tpu_torch.ops import attention
+    from clip_calibration_tpu_torch.ops import quant as Q
+    model, cfg = load_clip_backbone("ViT-B/16", "float32", device)
+    gen = torch.Generator().manual_seed(5)
+    images = torch.randn((2, 224, 224, 3), generator=gen)
+    products = []
+
+    def recorded(x, w, qmode="dequant"):
+        out = Q.qdot(x, w, qmode)
+        products.append((x.cpu(), Q.QuantizedWeight(
+            w.int8.cpu(), w.scale.cpu(), w.act_scale.cpu()), out.cpu()))
+        return out
+
+    with torch.inference_mode():
+        qm = Q.quantize_clip_params(model)
+        qm = Q.attach_act_scales(qm, Q.calibrate_image_act_scales(
+            qm, cfg, images.to(device)))
+        cpu = params_from_numpy(flat_params(qm), cfg, torch.float32, "cpu")
+        M.qdot = attention.qdot = recorded
+        try:
+            got = M.normalize(M.encode_image(qm, cfg, images.to(device),
+                                             dtype=torch.float32,
+                                             qmode="w8a8")).cpu()
+        finally:
+            M.qdot = attention.qdot = Q.qdot
+        want = M.normalize(M.encode_image(cpu, cfg, images,
+                                          dtype=torch.float32, qmode="w8a8"))
+        equal = sum(bool(torch.equal(Q.qdot(x, w, "w8a8"), out))
+                    for x, w, out in products)
+        # the tower's sensitivity to float rounding, on the CPU alone: 1e-7
+        # relative noise after every LayerNorm (the reason for the
+        # tolerance)
+        noise = torch.Generator().manual_seed(6)
+        layer_norm = attention.layer_norm
+
+        def noisy(*args):
+            y = layer_norm(*args)
+            return y * (1 + 1e-7 * torch.randn(y.shape, generator=noise))
+
+        M.layer_norm = attention.layer_norm = noisy
+        try:
+            perturbed = M.normalize(M.encode_image(
+                cpu, cfg, images, dtype=torch.float32, qmode="w8a8"))
+        finally:
+            M.layer_norm = attention.layer_norm = layer_norm
+    cos = (got * want).sum(-1)
+    worst = float(1.0 - cos.min())
+    emit("serve_check", backbone="ViT-B/16", dtype="float32",
+         qmode="w8a8 (static scales)", one_minus_cos=[float(1 - c)
+                                                      for c in cos],
+         tol=SERVE_COS_TOL, products=len(products),
+         products_bit_equal_to_cpu=equal,
+         cpu_one_minus_cos_under_1e7_layernorm_noise=[
+             float(1 - c) for c in (want * perturbed).sum(-1)])
+    del model, qm, cpu, products
+    if not (math.isfinite(worst) and worst <= SERVE_COS_TOL):
+        raise AssertionError(f"w8a8 tower on the card differs from the CPU: "
+                             f"1 - cos = {worst}")
+    if equal != 50:
+        raise AssertionError(f"{50 - equal} of 50 w8a8 products on the card "
+                             f"differ from the CPU on the same input")
+
+
 def _kernel_entry(name, source, replaces, launches, cases, **extra):
     # the top-level numbers: the case the main path launched most often
     main_case = max(cases, key=lambda c: c["main_path_launches"])
@@ -658,6 +1148,7 @@ def main() -> int:
          nvidia_smi=smi)
 
     from clip_calibration_tpu_torch.ops import attention, build
+    from clip_calibration_tpu_torch.ops import int8_matmul as int8_ops
     from clip_calibration_tpu_torch.ops import mha_qkv as kernels
     seconds = build.build()
     ptxas = {name: [ln.strip() for ln in
@@ -677,34 +1168,56 @@ def main() -> int:
     })
     k1 = Recorder(kernels.mha_qkv)
     k2 = Recorder(kernels.mha_qkv_bwd)
+    k3 = ShapeRecorder(int8_ops.int8_matmul)
     old_cwd = os.getcwd()
     os.chdir(WORK)  # the ./temp feature caches are cwd-relative
-    attention.mha_qkv, kernels.mha_qkv_bwd = k1, k2
+    attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.int8_matmul = k1, k2, k3
     try:
         k1_main = run_main_path(k1)
         k1_train, k2_train = run_train_path(k1, k2)
+        k1_serve, k3_serve = run_serve_path(k1, k3)
     finally:
-        attention.mha_qkv, kernels.mha_qkv_bwd = k1.fn, k2.fn
+        attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.int8_matmul = \
+            k1.fn, k2.fn, k3.fn
         os.chdir(old_cwd)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
-    cases_fwd = check_kernels(device, k1.calls)
-    cases_bwd = check_kernels_bwd(device, k2.calls)
-    check_towers(device)
-    check_train_step(device)
+    seconds = {}
+
+    def timed(check, *args):
+        t0 = time.perf_counter()
+        out = check(*args)
+        seconds[check.__name__] = time.perf_counter() - t0
+        return out
+
+    cases_fwd = timed(check_kernels, device, k1.calls)
+    cases_bwd = timed(check_kernels_bwd, device, k2.calls)
+    cases_int8 = timed(check_int8_matmul, device, k3.calls)
+    timed(check_towers, device)
+    timed(check_train_step, device)
+    timed(check_serve_tower, device)
+    emit("check_seconds", **seconds)
 
     print(json.dumps({"kernels": [
         _kernel_entry(
             "mha_qkv_fwd", "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:36",
-            k1_main + k1_train, cases_fwd,
-            launches_by_path={"main_path": k1_main, "train_path": k1_train}),
+            k1_main + k1_train + k1_serve, cases_fwd,
+            launches_by_path={"main_path": k1_main, "train_path": k1_train,
+                              "serve_path": k1_serve}),
         _kernel_entry(
             "mha_qkv_bwd", "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
             k2_train, cases_bwd,
-            launches_by_path={"main_path": 0, "train_path": k2_train}),
+            launches_by_path={"main_path": 0, "train_path": k2_train,
+                              "serve_path": 0}),
+        _kernel_entry(
+            "int8_matmul", "clip_calibration_tpu_torch/csrc/int8_matmul.cu",
+            "clip_calibration_tpu/ops/pallas_int8_matmul.py:35",
+            k3_serve, cases_int8,
+            launches_by_path={"main_path": 0, "train_path": 0,
+                              "serve_path": k3_serve}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -97,6 +97,16 @@ class TrainerX:
         self.build_data_loader()
         self.evaluator = build_evaluator(cfg, lab2cname=self.dm.lab2cname)
         self.build_model()
+        # TRAINER.QUANT_FROZEN_VISION is never silently ignored: a trainer
+        # that supports it calls setup_frozen_vision() in its build_model
+        # (which installs the quantized tower or raises); anything else
+        # lands here
+        if cfg.TRAINER.QUANT_FROZEN_VISION and \
+                getattr(self, "_step_clip_params", None) is None:
+            raise ValueError(
+                f"{type(self).__name__} does not support "
+                "TRAINER.QUANT_FROZEN_VISION (its build_model never "
+                "installed a quantized frozen tower)")
 
     # -- hooks ------------------------------------------------------------
     def check_cfg(self, cfg):

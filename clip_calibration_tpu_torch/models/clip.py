@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.attention import (causal_mask, layer_norm, multi_head_attention,
                              quick_gelu)
+from ..ops.quant import BLOCK_WEIGHTS, qdot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,14 +111,29 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(width, device)
         self.mlp = MLP(width, dtype, device)
 
-    def forward(self, h, n_heads: int, mask):
+    def forward(self, h, n_heads: int, mask, qmode: str = "dequant",
+                stats: Optional[dict] = None):
+        """``qmode``: how int8 weights run (``ops/quant.py::qdot``; plain
+        weights ignore it). ``stats``: when given, the absmax over the
+        first ``stats["real_len"]`` tokens of each quantized-matmul input
+        is appended to ``stats[(outer, key)]``."""
         a = self.attn
-        h = h + multi_head_attention(self.ln_1(h), a.wqkv, a.bqkv, a.wo,
-                                     a.bo, n_heads, mask)
+        ln1 = self.ln_1(h)
+        attn, ctx = multi_head_attention(ln1, a.wqkv, a.bqkv, a.wo, a.bo,
+                                         n_heads, mask, qmode=qmode,
+                                         return_ctx=True)
+        h = h + attn
         m = self.mlp
-        y = self.ln_2(h)
-        y = quick_gelu(y @ m.w_fc + m.b_fc.to(y.dtype))
-        return h + (y @ m.w_proj + m.b_proj.to(y.dtype))
+        fc_in = self.ln_2(h)
+        y = quick_gelu(qdot(fc_in, m.w_fc, qmode) + m.b_fc.to(fc_in.dtype))
+        out = h + (qdot(y, m.w_proj, qmode) + m.b_proj.to(y.dtype))
+        if stats is not None:
+            L = stats["real_len"]
+            for site, t in ((("attn", "wqkv"), ln1), (("attn", "wo"), ctx),
+                            (("mlp", "w_fc"), fc_in),
+                            (("mlp", "w_proj"), y)):
+                stats[site].append(t[:, :L].float().abs().amax())
+        return out
 
 
 class VisionTower(nn.Module):
@@ -215,7 +231,8 @@ def init_clip(model: CLIP, seed: int) -> CLIP:
 # ---------------------------------------------------------------------------
 
 def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, qmode: str = "dequant",
+                collect_act_stats: bool = False):
     """Run the residual blocks over x [B, L, D].
 
     The token axis is padded ONCE to a multiple of 16 for the whole tower
@@ -223,6 +240,13 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
     padded keys are masked with finfo.min, padded rows attend to token 0
     only, so real-token outputs are unchanged and every row keeps a finite
     key; the pad is sliced off on return.
+
+    qmode: execution mode of int8 weights (``ops/quant.py::qdot``).
+    collect_act_stats: also return, per quantized-matmul input site, the
+    absmax over the real tokens (padding rows excluded; the matmuls still
+    run over them) as [n_layers] tensors, ``{"attn": {"wqkv", "wo"},
+    "mlp": {"w_fc", "w_proj"}}``: the calibration capture of static w8a8.
+    Return becomes ``(out, stats)``.
     """
     transformer.forwards += 1
     L = x.shape[1]
@@ -239,9 +263,19 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
         mask = full
     elif mask is None:
         mask = torch.zeros((L, L), dtype=torch.float32, device=x.device)
+    stats = None
+    if collect_act_stats:
+        stats = {"real_len": L, **{(o, k): [] for o, k in BLOCK_WEIGHTS}}
     for block in blocks:
-        x = block(x, n_heads, mask)
-    return x[:, :L] if Lp != L else x
+        x = block(x, n_heads, mask, qmode=qmode, stats=stats)
+    x = x[:, :L] if Lp != L else x
+    if not collect_act_stats:
+        return x
+    out = {}
+    for o, k in BLOCK_WEIGHTS:
+        out.setdefault(o, {})[k] = torch.stack(stats[(o, k)])
+    return x, out
+
 
 
 #: tower forwards run since the last reset (each runs one fused-attention
@@ -274,7 +308,9 @@ def _splice_vision(x: torch.Tensor, prompt: torch.Tensor,
 
 def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
                          eot_pos: torch.Tensor,
-                         seq_len: Optional[int] = None) -> torch.Tensor:
+                         seq_len: Optional[int] = None,
+                         qmode: str = "dequant",
+                         collect_act_stats: bool = False):
     """Text tower over pre-embedded prompts [N, 77, D] (the PromptLearner
     path, reference TextEncoder ``trainers/classification/coop.py:47-67``).
 
@@ -282,6 +318,10 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
     seq_len: truncation (> max(eot_pos)). The mask is causal, so tokens
     past the longest EOT cannot reach the pooled feature; None keeps the
     full length.
+    qmode / collect_act_stats: as ``transformer``; the stats add
+    ``text_projection`` (the pooled rows) and every row up to ``seq_len``
+    counts, as the quantized matmuls run over them all. Return becomes
+    ``(features, stats)``.
     """
     txt = model.text
     if seq_len is not None and seq_len < x.shape[1]:
@@ -293,10 +333,17 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
         x = x[:, :seq_len]
     x = x + txt.positional_embedding[:x.shape[1]].to(x.dtype)
     mask = causal_mask(x.shape[1], device=x.device)
-    x = transformer(txt.blocks, x, cfg.transformer_heads, mask)
+    x = transformer(txt.blocks, x, cfg.transformer_heads, mask, qmode=qmode,
+                    collect_act_stats=collect_act_stats)
+    if collect_act_stats:
+        x, blocks = x
     x = txt.ln_final(x)
     pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos]
-    return pooled @ txt.text_projection
+    feats = qdot(pooled, txt.text_projection, qmode)
+    if not collect_act_stats:
+        return feats
+    return feats, {"blocks": blocks,
+                   "text_projection": pooled.float().abs().amax()}
 
 
 def eot_seq_len(tokens_or_eot) -> int:
@@ -329,17 +376,35 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
-                 dtype=torch.bfloat16) -> torch.Tensor:
-    """Vision tower. images: [B, H, W, 3] (NHWC, preprocessed)."""
+                 dtype=torch.bfloat16, qmode: str = "dequant",
+                 collect_act_stats: bool = False):
+    """Vision tower. images: [B, H, W, 3] (NHWC, preprocessed).
+
+    qmode: execution mode of int8 weights (``ops/quant.py::qdot``).
+    collect_act_stats: also return the absmax of every quantized-matmul
+    input (patchified pixels, the block sites of ``transformer``, the
+    ln_post output feeding ``proj``) for static w8a8 calibration; return
+    becomes ``(features, stats)``."""
     vp = model.visual
-    x = patchify(images.to(dtype), cfg.vision_patch_size) @ vp.patch_kernel
+    x = patchify(images.to(dtype), cfg.vision_patch_size)
+    stats = {}
+    if collect_act_stats:
+        stats["patch_kernel"] = x.float().abs().amax()
+    x = qdot(x, vp.patch_kernel, qmode)
     cls = vp.class_embedding.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
     x = x + vp.positional_embedding.to(x.dtype)
     x = vp.ln_pre(x)
-    x = transformer(vp.blocks, x, cfg.vision_heads)
+    x = transformer(vp.blocks, x, cfg.vision_heads, qmode=qmode,
+                    collect_act_stats=collect_act_stats)
+    if collect_act_stats:
+        x, stats["blocks"] = x
     x = vp.ln_post(x[:, 0])
-    return x @ vp.proj
+    feats = qdot(x, vp.proj, qmode)
+    if not collect_act_stats:
+        return feats
+    stats["proj"] = x.float().abs().amax()
+    return feats, stats
 
 
 # ---------------------------------------------------------------------------

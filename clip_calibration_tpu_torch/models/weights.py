@@ -57,14 +57,61 @@ def _module_name(key: str, layer: Optional[int] = None) -> str:
     return ".".join(parts)
 
 
+_QUANT_LEAVES = ("int8", "scale", "act_scale")
+
+
+def _split_quantized(flat: Dict[str, Any]):
+    """(plain leaves, {weight key: {"int8", "scale"[, "act_scale"]}}): a
+    key ``<w>/int8`` marks ``<w>`` as an int8 weight of the JAX package's
+    ``ops/quant.py`` (its ``<w>/scale`` is then no LayerNorm scale)."""
+    qkeys = {k[:-len("/int8")] for k in flat if k.endswith("/int8")}
+    plain, quant = {}, {}
+    for key, value in flat.items():
+        base, _, leaf = key.rpartition("/")
+        if base in qkeys and leaf in _QUANT_LEAVES:
+            quant.setdefault(base, {})[leaf] = value
+        else:
+            plain[key] = value
+    return plain, quant
+
+
+def _set_quantized(model: CLIP, key: str, leaves: Dict[str, Any], device):
+    """Put ``QuantizedWeight``s in place of the parameter named by the
+    JAX-layout ``key`` (stacked block leaves are split per layer)."""
+    from ..ops.quant import QuantizedWeight, _replace
+    parts = key.split("/")
+    t = {k: to_tensor(v).to(device, copy=True) for k, v in leaves.items()}
+    if "scale" not in t:
+        raise KeyError(f"{key}: int8 weight without its scale")
+    targets = ([(model.get_submodule(".".join(parts[:2] + [str(i)]
+                                              + parts[2:-1])), i)
+                for i in range(t["int8"].shape[0])]
+               if parts[1:2] == ["blocks"] else
+               [(model.get_submodule(".".join(parts[:-1])), None)])
+    for module, i in targets:
+        p = getattr(module, parts[-1])
+        q = {k: v if i is None else v[i] for k, v in t.items()}
+        if tuple(q["int8"].shape) != tuple(p.shape):
+            raise ValueError(f"{key}: int8 shape {tuple(q['int8'].shape)}"
+                             f" != {tuple(p.shape)}")
+        _replace(module, parts[-1], QuantizedWeight(
+            q["int8"].to(torch.int8), q["scale"].float(),
+            q["act_scale"].float() if "act_scale" in q else None))
+
+
 @torch.no_grad()
 def params_from_numpy(flat: Dict[str, Any], cfg: CLIPConfig,
                       dtype=torch.bfloat16, device="cuda") -> CLIP:
     """Build a ``CLIP`` on ``device`` from a JAX-layout flat dict. Matmul
     weights are cast to ``dtype``; norms, biases, embeddings and the
     logit scale are kept in fp32 (biases are cast to the activations'
-    dtype where they are added, as in the JAX code)."""
+    dtype where they are added, as in the JAX code). The JAX package's
+    quantized leaves (``<w>/int8``, ``<w>/scale``, ``<w>/act_scale``)
+    become ``ops/quant.py::QuantizedWeight``s."""
     model = CLIP(cfg, dtype=dtype, device=device)
+    flat, quant = _split_quantized(flat)
+    for key, leaves in quant.items():
+        _set_quantized(model, key, leaves, device)
     params = dict(model.named_parameters())
     filled = set()
 
@@ -93,10 +140,11 @@ def params_from_numpy(flat: Dict[str, Any], cfg: CLIPConfig,
 
 def flat_params(model: CLIP) -> Dict[str, torch.Tensor]:
     """Inverse of ``params_from_numpy``: JAX-layout flat dict of CPU
-    tensors (block leaves stacked over layers)."""
+    tensors (block leaves stacked over layers; an int8 weight as its
+    ``int8``/``scale``/``act_scale`` leaves)."""
     flat: Dict[str, torch.Tensor] = {}
     stacked: Dict[str, list] = {}
-    for name, p in model.named_parameters():
+    for name, p in [*model.named_parameters(), *model.named_buffers()]:
         parts = name.split(".")
         if parts[1:2] == ["blocks"]:
             key = "/".join(parts[:2] + parts[3:])

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from .mha_qkv import mha_qkv
+from .quant import qdot
 
 
 def causal_mask(length: int, device=None,
@@ -27,20 +28,23 @@ def causal_mask(length: int, device=None,
                                  device=device), diagonal=1)
 
 
-def multi_head_attention(x: torch.Tensor, wqkv: torch.Tensor,
-                         bqkv: torch.Tensor, wo: torch.Tensor,
+def multi_head_attention(x: torch.Tensor, wqkv, bqkv: torch.Tensor, wo,
                          bo: torch.Tensor, n_heads: int,
-                         mask: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         mask: Optional[torch.Tensor] = None,
+                         qmode: str = "dequant", return_ctx: bool = False):
     """Self-attention over x [B, L, D]: wqkv [D, 3D] (torch
-    ``in_proj_weight`` transposed), wo [D, D]; mask [L, L] additive fp32
-    (zeros when None)."""
+    ``in_proj_weight`` transposed), wo [D, D], each a plain tensor or an
+    int8 ``QuantizedWeight`` run in ``qmode`` (``ops/quant.py::qdot``; the
+    attention itself stays float); mask [L, L] additive fp32 (zeros when
+    None). ``return_ctx`` also returns the context [B, L, D] that feeds
+    ``wo`` (the activation-scale calibration site)."""
     L = x.shape[1]
-    qkv = x @ wqkv + bqkv.to(x.dtype)
+    qkv = qdot(x, wqkv, qmode) + bqkv.to(x.dtype)
     if mask is None:
         mask = torch.zeros((L, L), dtype=torch.float32, device=x.device)
     out = mha_qkv(qkv.contiguous(), mask.float().contiguous(), n_heads)
-    return out @ wo + bo.to(x.dtype)
+    final = qdot(out, wo, qmode) + bo.to(x.dtype)
+    return (final, out) if return_ctx else final
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -113,6 +113,108 @@ class VLBaseLearner(TrainerX):
             return None
         return self.clip_model.logit_scale
 
+    # -- quantized frozen vision tower (TRAINER.QUANT_FROZEN_VISION) -------
+    #: True on trainers whose image tower takes trainable prompt inputs
+    #: (the vision-prompt trainers, not ported yet): there the tower is on
+    #: the gradient path and cannot run quantized.
+    vision_tower_trainable = False
+    #: encode_image qmode of the frozen tower ("dequant" = full precision
+    #: on plain weights; set by setup_frozen_vision)
+    vision_qmode = "dequant"
+
+    @property
+    def step_clip_params(self):
+        """The frozen CLIP the steps run: ``clip_model``, unless
+        ``TRAINER.QUANT_FROZEN_VISION`` put a copy with an int8 vision
+        tower in its place (the text tower is the same module either
+        way, so the text path is bit-identical)."""
+        m = getattr(self, "_step_clip_params", None)
+        return self.clip_model if m is None else m
+
+    def vision_qmode_for(self, batch_rows: int) -> str:
+        """qmode of an image batch of ``batch_rows`` rows: under w8a8 a
+        single row runs the dynamic per-row path over the same int8
+        weights, as the serving Predictor's 1-row bucket does (the JAX
+        package's rule; it changes the numbers, not only the speed)."""
+        if self.vision_qmode == "w8a8" and batch_rows == 1:
+            return "w8a8_dynamic"
+        return self.vision_qmode
+
+    def _calibration_images(self):
+        """One raw uint8 image batch for static activation-scale
+        calibration, preferring the train distribution."""
+        for loader in (getattr(self, "train_loader_x", None),
+                       getattr(self, "val_loader", None),
+                       getattr(self, "test_loader", None)):
+            if loader is None:
+                continue
+            # serving builds carry loader stubs that report len > 0 but
+            # yield nothing (serving._ServingLoaderStub)
+            batch = next(iter(loader), None)
+            if batch is not None and "img" in batch:
+                return batch["img"]
+        raise ValueError(
+            "TRAINER.QUANT_FROZEN_VISION=w8a8 needs a data loader to "
+            "draw a calibration batch from; dataset-free serving builds "
+            "have none — serve this checkpoint with the flag overridden "
+            "(opts: TRAINER.QUANT_FROZEN_VISION '' for full precision, "
+            "or 'int8' for calibration-free weight-only quantization)")
+
+    @torch.no_grad()
+    def setup_frozen_vision(self):
+        """Opt-in quantized frozen vision tower for training and eval
+        (``TRAINER.QUANT_FROZEN_VISION``: '', 'int8' weight-only, or
+        'w8a8' with static activation scales calibrated on one loader
+        batch). Gradients never flow through the image tower of the
+        trainers that call this, so only its features change, by
+        quantization noise; the text tower, logits and checkpoints stay
+        exact. Call after ``clip_model`` exists."""
+        self.setup_eval_text_quant()  # validates that flag for everyone
+        mode = self.cfg.TRAINER.QUANT_FROZEN_VISION
+        if not mode:
+            return
+        if mode not in ("int8", "w8a8"):
+            raise ValueError(
+                f"TRAINER.QUANT_FROZEN_VISION={mode!r}: expected '', "
+                "'int8' or 'w8a8'")
+        if self.vision_tower_trainable:
+            raise ValueError(
+                f"{type(self).__name__} trains vision-side prompts — the "
+                "image tower is on the gradient path and cannot run "
+                "quantized (TRAINER.QUANT_FROZEN_VISION applies to "
+                "frozen-vision trainers only)")
+        from ..ops import quant as Q
+        from ..ops.preprocess import normalize_images
+        qm = Q.quantize_clip_params(self.clip_model)
+        if mode == "w8a8":
+            x = normalize_images(self.put_batch(self._calibration_images()),
+                                 *self.pixel_stats, dtype=self.compute_dtype)
+            qm = Q.attach_act_scales(
+                qm, Q.calibrate_image_act_scales(qm, self.clip_cfg, x))
+        self._step_clip_params = qm
+        self.vision_qmode = "w8a8" if mode == "w8a8" else "dequant"
+        print(f"Frozen vision tower quantized: mode={mode} "
+              f"(TRAINER.QUANT_FROZEN_VISION)")
+
+    # -- quantized eval-time text fan-out (TRAINER.QUANT_EVAL_TEXT) --------
+    def setup_eval_text_quant(self):
+        """Validate ``TRAINER.QUANT_EVAL_TEXT`` ('', 'int8' or 'w8a8'). It
+        applies to the trainers whose eval re-runs the text tower per
+        request (CoCoOp, ProDA: not ported yet); every ported trainer
+        encodes its class features once, so any mode raises here, as it
+        does for them in the JAX package."""
+        mode = self.cfg.TRAINER.QUANT_EVAL_TEXT
+        if not mode:
+            return
+        if mode not in ("int8", "w8a8"):
+            raise ValueError(
+                f"TRAINER.QUANT_EVAL_TEXT={mode!r}: expected '', "
+                "'int8' or 'w8a8'")
+        raise ValueError(
+            f"{type(self).__name__} encodes its class features once per "
+            "eval — TRAINER.QUANT_EVAL_TEXT applies to the per-request "
+            "text fan-out trainers (CoCoOp, ProDA) only")
+
     # -- cache paths (reference base_learner.py:106-108,123-134) ------------
     def _base_feature_dir(self, subsample: str) -> str:
         cfg = self.cfg

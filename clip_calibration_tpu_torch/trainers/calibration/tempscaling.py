@@ -123,6 +123,13 @@ class TempScaling(VLBaseLearner):
     def clip_model(self):
         return self.base.clip_model
 
+    @property
+    def _step_clip_params(self):
+        # TRAINER.QUANT_FROZEN_VISION is the wrapped base learner's (its
+        # build_model installed the quantized tower or raised); delegating
+        # satisfies the engine's check and keeps inference on its path
+        return getattr(self.base, "_step_clip_params", None)
+
     def _fingerprint_base(self) -> float:
         total = 0.0
         for slot in self.base._models.values():

@@ -224,6 +224,7 @@ class CoOp(VLBaseLearner):
             lambda: build_optimizer(cfg, [ctx]),
             build_lr_schedule(cfg, len(self.train_loader_x)))
         self._cached_text_features = None
+        self.setup_frozen_vision()
 
     def _resolve_ctx_init(self, tcfg) -> str:
         """KgCoOp configs use CTX_INIT: True meaning "a photo of a"
@@ -244,11 +245,15 @@ class CoOp(VLBaseLearner):
                                       seq_len=self.asm["seq_len"])
 
     def _image_features(self, images):
+        """Frozen image features on ``step_clip_params`` (an int8 tower
+        under ``TRAINER.QUANT_FROZEN_VISION``, run in the batch's
+        qmode)."""
         dtype = self.compute_dtype
         x = normalize_images(self.put_batch(images), *self.pixel_stats,
                              dtype=dtype)
-        return M.encode_image(self.clip_model, self.clip_cfg, x,
-                              dtype=dtype)
+        return M.encode_image(self.step_clip_params, self.clip_cfg, x,
+                              dtype=dtype,
+                              qmode=self.vision_qmode_for(x.shape[0]))
 
     def text_features(self):
         """Normalized class text features of the current context, cached

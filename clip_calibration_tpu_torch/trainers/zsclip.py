@@ -43,13 +43,15 @@ class ZeroshotCLIP(VLBaseLearner):
             self.clip_model, self.clip_cfg,
             torch.as_tensor(toks, dtype=torch.long, device=self.device),
             dtype=self.compute_dtype, seq_len=M.eot_seq_len(toks)))
+        self.setup_frozen_vision()
 
     def model_inference(self, images):
         dtype = self.compute_dtype
         x = normalize_images(self.put_batch(images), *self.pixel_stats,
                              dtype=dtype)
-        img_f = M.normalize(M.encode_image(self.clip_model, self.clip_cfg,
-                                           x, dtype=dtype))
+        img_f = M.normalize(M.encode_image(
+            self.step_clip_params, self.clip_cfg, x, dtype=dtype,
+            qmode=self.vision_qmode_for(x.shape[0])))
         txt_f = self.text_features
         scale = torch.exp(self.clip_model.logit_scale.float())
         logits = scale * (img_f.float() @ txt_f.float().T)

@@ -43,6 +43,7 @@ def test_port_has_its_own_assets():
     assert osp.exists(osp.join(PORT, "assets", "bpe_simple_vocab_16e6.txt.gz"))
     assert osp.exists(osp.join(PORT, "csrc", "mha_qkv_fwd.cu"))
     assert osp.exists(osp.join(PORT, "csrc", "mha_qkv_bwd.cu"))
+    assert osp.exists(osp.join(PORT, "csrc", "int8_matmul.cu"))
 
 
 _BLOCKER = textwrap.dedent("""
@@ -166,6 +167,59 @@ def test_cli_training_runs_with_jax_and_sklearn_blocked(tmp_path):
     assert "temperature" in log and "=> result" in log
 
 
+def test_serving_runs_with_jax_and_sklearn_blocked(tmp_path):
+    """The serving slice: the serve CLI in batch mode (w8a8 with
+    calibration images and saved scales) and an HTTP round trip over a
+    w8a8 predictor, without jax, sklearn or matplotlib."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(0)
+    (tmp_path / "imgs").mkdir()
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 256, (40, 48, 3), dtype=np.uint8)
+                        ).save(str(tmp_path / "imgs" / f"{i}.png"))
+    code = textwrap.dedent("""
+        import base64, json, threading, urllib.request
+        from clip_calibration_tpu_torch import serve
+        from clip_calibration_tpu_torch.config import get_cfg_default
+        from clip_calibration_tpu_torch.data.transforms import (
+            build_transform)
+        from clip_calibration_tpu_torch.http_server import serve_http
+        from clip_calibration_tpu_torch.serving import Predictor
+        assert serve.main(["--device", "cpu", "--backbone", "ViT-Test",
+                           "--classnames", "amber", "basalt",
+                           "--images", "imgs", "--out", "p.jsonl",
+                           "--quantize", "w8a8", "--calibration-images",
+                           "imgs", "--save-act-scales", "s.npz"]) == 0
+        pred = Predictor("ViT-Test", ["amber", "basalt"], quantize="w8a8",
+                         act_scales="s.npz", batch_size=4, device="cpu")
+        cfg = get_cfg_default()
+        cfg.INPUT.SIZE = (32, 32)
+        srv = serve_http(":0", pred, ["amber", "basalt"],
+                         build_transform(cfg, is_train=False))
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        host, port = srv.server_address[:2]
+        body = json.dumps({"images": [base64.b64encode(
+            open("imgs/0.png", "rb").read()).decode()]}).encode()
+        req = urllib.request.Request(
+            f"http://{host}:{port}/predict", data=body,
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            rows = json.loads(r.read())["predictions"]
+        srv.shutdown()
+        srv.server_close()
+        assert rows[0]["pred"] in ("amber", "basalt")
+        assert sys.modules["jax"] is None and sys.modules["sklearn"] is None
+        print("ok")
+    """)
+    r = _run(code, str(tmp_path),
+             {"CLIP_CHECKPOINT_DIR": osp.join(FIX, "weights")})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")
+    assert len(open(tmp_path / "p.jsonl").read().splitlines()) == 3
+
+
 def test_cli_default_device_raises_without_cuda(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "clip_calibration_tpu_torch.train",
@@ -189,8 +243,10 @@ def test_library_constructors_default_to_cuda_and_raise():
     assert not torch.cuda.is_available()
     cfg = get_cfg_default()
     cfg.TRAINER.NAME = "ZeroshotCLIP"
+    from clip_calibration_tpu_torch.serving import Predictor
     for call in (lambda: build_trainer(cfg),
                  lambda: load_clip_backbone("ViT-Test"),
+                 lambda: Predictor("ViT-Test", ["a", "b"]),
                  lambda: get_knn_dists(np.zeros((3, 2)), np.zeros((2, 2)), 1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
