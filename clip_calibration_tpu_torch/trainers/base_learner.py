@@ -114,10 +114,6 @@ class VLBaseLearner(TrainerX):
         return self.clip_model.logit_scale
 
     # -- quantized frozen vision tower (TRAINER.QUANT_FROZEN_VISION) -------
-    #: True on trainers whose image tower takes trainable prompt inputs
-    #: (the vision-prompt trainers, not ported yet): there the tower is on
-    #: the gradient path and cannot run quantized.
-    vision_tower_trainable = False
     #: encode_image qmode of the frozen tower ("dequant" = full precision
     #: on plain weights; set by setup_frozen_vision)
     vision_qmode = "dequant"
@@ -177,12 +173,6 @@ class VLBaseLearner(TrainerX):
             raise ValueError(
                 f"TRAINER.QUANT_FROZEN_VISION={mode!r}: expected '', "
                 "'int8' or 'w8a8'")
-        if self.vision_tower_trainable:
-            raise ValueError(
-                f"{type(self).__name__} trains vision-side prompts — the "
-                "image tower is on the gradient path and cannot run "
-                "quantized (TRAINER.QUANT_FROZEN_VISION applies to "
-                "frozen-vision trainers only)")
         from ..ops import quant as Q
         from ..ops.preprocess import normalize_images
         qm = Q.quantize_clip_params(self.clip_model)
