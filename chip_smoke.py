@@ -19,7 +19,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    swap, ep20_lr5e-2.yaml) on the trained model's base val split. Asserts
    finite losses, metrics and temperature, a changed context, the
    checkpoints, and that every text layer of every train step went
-   through the backward kernel K2 (12 launches a step).
+   through the backward kernel K2 (12 launches a step). The CoOp run
+   traces its first 5 steps (``TPU.PROFILE_DIR``, a torch.profiler Chrome
+   trace): the ``profile`` line lists their top 10 device kernels by total
+   time with counts, and fails unless K1 and K2 (12 a step) are in it.
 5. ``kernel``: each kernel against its plain PyTorch version on the card at
    every shape and mask the two paths gave it (both record every distinct
    (qkv shape, heads, dtype, mask)), in bf16 and fp32, with its time, the
@@ -37,15 +40,23 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    to direct ``predict``; one eval-only CoOp stage of the train CLI with
    ``TRAINER.QUANT_FROZEN_VISION w8a8``. Asserts finite outputs, K3
    launched 50 times per w8a8 image forward and K1 in every layer.
-7. ``kernel int8_matmul``: K3 against its plain version (exact) at every
+7. ``probe_path``: the port's int8 attention probe
+   (``probe_int8_attention``) at its default full width (B 256, L 208,
+   D 768, H 12), each variant on K4, one row a variant; asserts K4
+   launched in every variant.
+8. ``kernel int8_matmul``: K3 against its plain version (exact) at every
    (M, K, N) the serve path launched and at edge shapes, with its time,
    the plain version's, ``torch._int_mm``'s and the bound.
-8. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
+9. ``kernel int8_attention``: K4, each variant, against its plain version
+   at the probe's shape and at edges (L 77 causal, L 197 unpadded, head
+   dim 32, a batch of 1), with its time, the plain version's, SDPA's
+   (fp32_scores only) and the bound.
+10. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
    against the same weights on the CPU (plain version), fp32.
-9. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
+11. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
    width, fp32, on the card (K1 and K2) against the CPU (plain versions)
    with the same weights, context and batch.
-10. ``serve_check``: the w8a8 ViT-B/16 vision tower with static scales on
+12. ``serve_check``: the w8a8 ViT-B/16 vision tower with static scales on
    the card (K3) against the same int8 weights and scales on the CPU (the
    plain version), fp32, by the features' cosine similarity.
 
@@ -62,8 +73,6 @@ import os
 import os.path as osp
 import re
 import shutil
-import statistics
-import subprocess
 import sys
 import time
 
@@ -103,40 +112,6 @@ SERVE_COS_TOL = 1e-3
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-
-
-# written between timed calls: 5x the H100's 50 MB L2, so every timed
-# call reads its inputs from device memory, as bound_ms assumes
-L2_FLUSH_BYTES = 256 << 20
-
-
-def time_ms(fn, flush, repeats: int = 25) -> float:
-    """Device time of one call with cold inputs: median over ``repeats``
-    of the CUDA-event time around one call, each after ``flush`` (a
-    tensor larger than L2) is overwritten. A sleep kernel keeps the card
-    busy while the host queues the calls, so the host's launch overhead
-    is not in the number."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True))
-              for _ in range(repeats)]
-    torch.cuda._sleep(20_000_000)  # ~10 ms of device time
-    for start, end in events:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def pad_mask(real: int, padded: int, causal: bool, device):
@@ -236,6 +211,8 @@ def check_kernels(device, launched):
     import torch
     from clip_calibration_tpu_torch.ops.mha_qkv import (mha_qkv,
                                                         mha_qkv_reference)
+    from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
+                                                            time_ms)
     F = torch.nn.functional
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     cases = []
@@ -429,6 +406,51 @@ def run_main_path(k1):
     return launches
 
 
+#: CoOp train steps that TPU.PROFILE_DIR traces in the train path
+PROFILE_STEPS = 5
+
+
+def step_profile(trace_dir: str) -> dict:
+    """The traced CoOp steps' device kernels from the Chrome trace that
+    ``TPU.PROFILE_DIR`` wrote: the top 10 by total time with their counts,
+    the kernels' summed time, the trace's window and the share of it the
+    card spent in kernels. Fails unless K1's and K2's kernels are in the
+    trace and K2's two kernels ran 12 times a step (one per text layer)."""
+    import glob
+    paths = glob.glob(osp.join(trace_dir, "trace_*.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"want one trace under {trace_dir}: {paths}")
+    events = json.load(open(paths[0]))["traceEvents"]
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in timed if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels:
+        entry = by_name.setdefault(e["name"], [0, 0.0])
+        entry[0] += 1
+        entry[1] += e["dur"]
+    window_us = (max(e["ts"] + e["dur"] for e in timed)
+                 - min(e["ts"] for e in timed))
+    kernel_us = sum(e["dur"] for e in kernels)
+    counts = {want: sum(n for name, (n, _) in by_name.items()
+                        if want + "<" in name)
+              for want in ("mha_qkv_fwd_bf16", "mha_qkv_bwd_dq_bf16",
+                           "mha_qkv_bwd_dkdv_bf16")}
+    if not counts["mha_qkv_fwd_bf16"] or any(
+            counts[k] != 12 * PROFILE_STEPS for k in (
+                "mha_qkv_bwd_dq_bf16", "mha_qkv_bwd_dkdv_bf16")):
+        raise AssertionError(f"the trace misses the port's kernels: "
+                             f"{counts} ({len(by_name)} kernel names)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"trace": osp.relpath(paths[0], ROOT), "steps": PROFILE_STEPS,
+            "window_ms": window_us / 1e3, "kernel_ms": kernel_us / 1e3,
+            "kernel_share_of_window": kernel_us / window_us,
+            "kernel_launches": len(kernels), "port_kernel_counts": counts,
+            "top_kernels": [{"name": name[:120], "count": n,
+                             "total_ms": us / 1e3,
+                             "share_of_kernel_time": us / kernel_us}
+                            for name, (n, us) in top]}
+
+
 def run_train_path(k1, k2):
     """CoOp training and the TempScaling fit through the port's CLI, K1's
     and K2's entry points recorded by ``k1`` and ``k2``. Returns (K1
@@ -464,7 +486,9 @@ def run_train_path(k1, k2):
         seconds, log_path = _cli_stage(
             "coop_train", common + coop + ["--output-dir", train_dir] + opts
             + ["OPTIM.MAX_EPOCH", "2", "TRAIN.PRINT_FREQ", "1",
-               "DATASET.SUBSAMPLE_CLASSES", "base"], "log.txt")
+               "DATASET.SUBSAMPLE_CLASSES", "base",
+               "TPU.PROFILE_DIR", osp.join(WORK, "profile"),
+               "TPU.PROFILE_STEPS", str(PROFILE_STEPS)], "log.txt")
         train_launches = (mha_qkv.launches, mha_qkv_bwd.launches)
         text = open(log_path).read()
         losses = [float(x) for x in re.findall(r" loss (\S+) \(", text)]
@@ -489,6 +513,8 @@ def run_train_path(k1, k2):
              launches={"mha_qkv_fwd": train_launches[0],
                        "mha_qkv_bwd": train_launches[1]},
              metrics=_checked_metrics("coop_train", log_path))
+        emit("profile", stage="coop_train",
+             **step_profile(osp.join(WORK, "profile")))
 
         seconds, log_path = _cli_stage(
             "tempscaling", common + coop + [
@@ -533,6 +559,8 @@ def check_kernels_bwd(device, launched):
     import torch
     from clip_calibration_tpu_torch.ops.mha_qkv import (
         mha_qkv_bwd, mha_qkv_bwd_reference)
+    from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
+                                                            time_ms)
     cases = [(shape, H, dtype, mask, calls)
              for shape, H, dtype, mask, calls in launched]
     cases.append(((32, 208, 2304), 12, None, pad_mask(197, 208, False,
@@ -997,6 +1025,8 @@ def check_int8_matmul(device, launched):
     import torch
     from clip_calibration_tpu_torch.ops.int8_matmul import (
         int8_matmul, int8_matmul_reference)
+    from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
+                                                            time_ms)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     gen = torch.Generator(device=device).manual_seed(4)
     cases = [(shape, n) for shape, n in sorted(launched.items())] + \
@@ -1113,6 +1143,142 @@ def check_serve_tower(device):
                              f"differ from the CPU on the same input")
 
 
+def run_probe_path():
+    """K4's path: the probe's entry point (``probe_int8_attention.run``)
+    at its default full-width shape (B 256, L 208, D 768, H 12: 327.3 MB
+    read and written a call), every variant on the card, console to a
+    file. Returns (K4 launches, the probe's rows)."""
+    from clip_calibration_tpu_torch import probe_int8_attention as probe
+    from clip_calibration_tpu_torch.ops.int8_attention import (
+        VARIANTS, int8_attention)
+    int8_attention.launches = 0
+    t0 = time.perf_counter()
+    with open(osp.join(WORK, "probe.console.txt"), "w") as con:
+        sys.stdout = con
+        try:
+            rows = probe.run(*probe.DEFAULT_SHAPE, "cuda")
+        finally:
+            sys.stdout = sys.__stdout__
+    seconds = time.perf_counter() - t0
+    launches = int8_attention.launches
+    for row in rows:
+        emit("probe_path", **row)
+    if ([r["variant"] for r in rows] != list(VARIANTS)
+            or any(r["launches"] == 0 for r in rows)
+            or sum(r["launches"] for r in rows) != launches):
+        raise AssertionError(f"the probe did not launch K4 in every "
+                             f"variant: {rows} ({launches} launches)")
+    if not all(math.isfinite(r["max_abs_diff_vs_fp32"])
+               and 0 < r["max_abs_diff_vs_fp32"] < 1 for r in rows[1:]):
+        raise AssertionError(f"probe deltas out of range: {rows}")
+    emit("probe_path", stage="totals", seconds=seconds,
+         shape=list(probe.DEFAULT_SHAPE), launches=launches)
+    return launches, rows
+
+
+# K4 cases beyond the probe's shape: (B, L, D, H, real length, causal)
+K4_EDGES = [
+    (4, 77, 512, 8, 77, True),       # L 77, causal (the text tower's)
+    (3, 197, 768, 12, 197, False),   # L 197, no padding, no mask
+    (2, 208, 384, 12, 197, False),   # head dim 32: 1/sqrt(d) not 2^-k
+    (1, 208, 768, 12, 197, False),   # a batch of 1
+]
+
+
+def k4_tolerance(qkv, want, variant):
+    """|K4 - its plain version| allowed, per output element (the rule of
+    tests/test_torch_int8_attention.py). fp32_scores and int8_qk: 2 bf16
+    ulps of max |plain| (the two take sums and exp in other orders, so a
+    P may round to the neighbouring bf16, and so may the output).
+    int8_qk_pv: 2 sv of the output's column (sv = its max |v| / 127):
+    one p on the other side of a rounding boundary of round(p * 127)
+    moves the output by at most sv."""
+    D = qkv.shape[-1] // 3
+    if variant == "int8_qk_pv":
+        return 2 * qkv[..., 2 * D:].float().abs().amax(dim=1,
+                                                       keepdim=True) / 127
+    top = float(want.float().abs().max())
+    return 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def check_int8_attention(device, probe_launches):
+    """K4 against its plain version, each variant, at the probe's shape
+    (its main-path launches: ``probe_launches`` by variant) and at
+    ``K4_EDGES``, with its time, the plain version's, SDPA's with the
+    float mask for fp32_scores (no PyTorch call computes the int8
+    variants: null) and the bound. The bound's operations: QK^T and P.V,
+    2 B H L^2 d each, at the peak of the type each variant uses."""
+    import torch
+    from clip_calibration_tpu_torch.ops.int8_attention import (
+        VARIANTS, int8_attention, int8_attention_reference)
+    from clip_calibration_tpu_torch.probe_int8_attention import (
+        DEFAULT_SHAPE, PAD_FROM, probe_inputs)
+    from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
+                                                            time_ms)
+    F = torch.nn.functional
+    neg = torch.finfo(torch.float32).min
+    types = {"fp32_scores": ("bfloat16", "bfloat16"),
+             "int8_qk": ("int8", "bfloat16"), "int8_qk_pv": ("int8", "int8")}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    out = []
+    cases = [(*DEFAULT_SHAPE, PAD_FROM, False)] + K4_EDGES
+    for i, (B, L, D, H, real, causal) in enumerate(cases):
+        qkv, _ = probe_inputs(B, L, D, device, seed=i)
+        mask = torch.zeros((L, L), dtype=torch.float32, device=device)
+        if causal:
+            mask = torch.triu(torch.full((L, L), neg, device=device), 1)
+        mask[:, real:] = neg
+        kind = "+".join(k for k, on in (("causal", causal),
+                                        ("pad", real < L)) if on) or "none"
+        d = D // H
+        q, k, v = qkv.view(B, L, 3, H, d).permute(2, 0, 3, 1, 4)
+        nbytes = qkv.numel() * 2 + mask.numel() * 4 + B * L * D * 2
+        product_ops = 2.0 * B * H * L * L * d  # QK^T; P.V the same
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        for variant in VARIANTS:
+            got = int8_attention(qkv, mask, H, variant)
+            torch.cuda.synchronize()
+            want = int8_attention_reference(qkv, mask, H, variant)
+            diff = (got.float() - want.float()).abs()
+            tol = k4_tolerance(qkv, want, variant)
+            ok = bool(torch.isfinite(got.float()).all()) and bool(
+                (diff <= tol).all())
+            t_ops = sum(product_ops / PEAK_FLOPS[t]
+                        for t in types[variant]) * 1e3
+            library_ms = (time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask.to(qkv.dtype)), flush)
+                if variant == "fp32_scores" else None)
+            rec = {
+                "qkv": [B, L, 3 * D], "heads": H, "mask": kind,
+                "real_len": real, "variant": variant, "dtype": "bfloat16",
+                "main_path_launches": probe_launches[variant] if i == 0
+                else 0,
+                "max_abs_err": float(diff.max()),
+                "max_err_over_tol": float((diff / tol).max()),
+                "tol": ("2 sv of the column" if variant == "int8_qk_pv"
+                        else "2 bf16 ulps of max |plain|"), "ok": ok,
+                "ms": time_ms(lambda: int8_attention(qkv, mask, H, variant),
+                              flush),
+                "plain_ms": time_ms(lambda: int8_attention_reference(
+                    qkv, mask, H, variant), flush),
+                "library_ms": library_ms,
+                "library": ("scaled_dot_product_attention, float mask"
+                            if library_ms is not None else
+                            "null: no PyTorch call computes int8 products "
+                            "inside attention"),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "ops": 2 * product_ops,
+            }
+            emit("kernel int8_attention", **rec)
+            if not ok:
+                raise AssertionError(
+                    f"int8_attention disagrees with its plain version: {rec}")
+            out.append(rec)
+    del flush
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, cases, **extra):
     # the top-level numbers: the case the main path launched most often,
     # ties going to the one that moves the most bytes
@@ -1140,6 +1306,7 @@ def main() -> int:
     # plain fp32 references must be full fp32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from clip_calibration_tpu_torch.tools.profiling import nvidia_smi
     device = torch.device("cuda", 0)
     smi = nvidia_smi()
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
@@ -1175,6 +1342,7 @@ def main() -> int:
         k1_main = run_main_path(k1)
         k1_train, k2_train = run_train_path(k1, k2)
         k1_serve, k3_serve = run_serve_path(k1, k3)
+        k4_probe, probe_rows = run_probe_path()
     finally:
         attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.int8_matmul = \
             k1.fn, k2.fn, k3.fn
@@ -1193,6 +1361,8 @@ def main() -> int:
     cases_fwd = timed(check_kernels, device, k1.calls)
     cases_bwd = timed(check_kernels_bwd, device, k2.calls)
     cases_int8 = timed(check_int8_matmul, device, k3.calls)
+    cases_k4 = timed(check_int8_attention, device,
+                     {r["variant"]: r["launches"] for r in probe_rows})
     timed(check_towers, device)
     timed(check_train_step, device)
     timed(check_serve_tower, device)
@@ -1204,19 +1374,31 @@ def main() -> int:
             "clip_calibration_tpu/ops/pallas_attention.py:36",
             k1_main + k1_train + k1_serve, cases_fwd,
             launches_by_path={"main_path": k1_main, "train_path": k1_train,
-                              "serve_path": k1_serve}),
+                              "serve_path": k1_serve,
+                              "probe_path": 0}),
         _kernel_entry(
             "mha_qkv_bwd", "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
             k2_train, cases_bwd,
             launches_by_path={"main_path": 0, "train_path": k2_train,
-                              "serve_path": 0}),
+                              "serve_path": 0,
+                              "probe_path": 0}),
         _kernel_entry(
             "int8_matmul", "clip_calibration_tpu_torch/csrc/int8_matmul.cu",
             "clip_calibration_tpu/ops/pallas_int8_matmul.py:35",
             k3_serve, cases_int8,
             launches_by_path={"main_path": 0, "train_path": 0,
-                              "serve_path": k3_serve}),
+                              "serve_path": k3_serve, "probe_path": 0}),
+        _kernel_entry(
+            "int8_attention",
+            "clip_calibration_tpu_torch/csrc/int8_attention.cu",
+            "benchmarks/probe_int8_attention.py:69", k4_probe, cases_k4,
+            launches_by_path={"main_path": 0, "train_path": 0,
+                              "serve_path": 0, "probe_path": k4_probe},
+            variants={c["variant"]: {k: c[k] for k in (
+                "main_path_launches", "max_abs_err", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")}
+                for c in cases_k4 if c["main_path_launches"]}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

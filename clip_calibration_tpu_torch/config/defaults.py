@@ -301,7 +301,7 @@ def get_cfg_default() -> CN:
     cfg.TPU.MESH_AXES = ("data", "model")  # consumed by mesh_from_cfg
     cfg.TPU.DISTRIBUTED = False      # multi-host pod: jax.distributed init
     cfg.TPU.USE_PALLAS = "auto"      # auto | always | never (attention)
-    cfg.TPU.PROFILE_DIR = ""         # jax.profiler trace output dir
+    cfg.TPU.PROFILE_DIR = ""         # torch.profiler Chrome trace dir
     cfg.TPU.PROFILE_STEPS = 20       # steps of epoch 0 to trace
 
     return cfg

@@ -34,6 +34,7 @@ from ..engine.optim import (load_opt_state_leaves, opt_state_leaves,
                             set_lr)
 from ..engine.registry import build_evaluator
 from ..tools.device import resolve_device
+from ..tools.profiling import Tracer
 
 
 class MetricMeter:
@@ -212,6 +213,14 @@ class TrainerX:
         meter = MetricMeter()
         epoch_start = time.time()
         self.num_batches = len(self.train_loader_x)
+        profile_dir = self.cfg.TPU.PROFILE_DIR
+        tracer = None
+        if profile_dir and self.epoch == 0:
+            print(f"Tracing first {self.cfg.TPU.PROFILE_STEPS} steps "
+                  f"to {profile_dir}")
+            # Tracer.stop waits for the card: losses are fetched lazily,
+            # so the traced steps may still be queued when it is called
+            tracer = Tracer(profile_dir, self.device).start()
         # forward_backward only enqueues device work (losses are fetched
         # at print time), so the numbers come from the print window:
         # printing the meter drains the queue, and the window's wall time
@@ -224,6 +233,10 @@ class TrainerX:
             window_data += time.time() - end  # decode/prefetch wait
             meter.update(self.forward_backward(batch))
             window_steps += 1
+            if tracer is not None and \
+                    self.batch_idx + 1 >= self.cfg.TPU.PROFILE_STEPS:
+                tracer.stop()
+                tracer = None
             if ((self.batch_idx + 1) % self.cfg.TRAIN.PRINT_FREQ == 0
                     or self.num_batches < self.cfg.TRAIN.PRINT_FREQ):
                 msg = str(meter)  # fetches the pending losses (sync)
@@ -243,6 +256,8 @@ class TrainerX:
                 window_steps = 0
                 window_data = 0.0
             end = time.time()
+        if tracer is not None:  # epoch shorter than PROFILE_STEPS
+            tracer.stop()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.time() - epoch_start

@@ -26,7 +26,8 @@ BUILD_DIR = osp.join(osp.dirname(PKG_DIR), "build",
 #: kernel name -> its source under csrc/
 SOURCES = {"mha_qkv_fwd": "mha_qkv_fwd.cu",
            "mha_qkv_bwd": "mha_qkv_bwd.cu",
-           "int8_matmul": "int8_matmul.cu"}
+           "int8_matmul": "int8_matmul.cu",
+           "int8_attention": "int8_attention.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -131,10 +131,6 @@ def main(args):
     if cfg.TPU.DISTRIBUTED:
         raise NotImplementedError(
             "multi-process runs are not ported to the torch package yet")
-    if cfg.TPU.PROFILE_DIR:
-        raise NotImplementedError(
-            "step tracing (TPU.PROFILE_DIR) is not ported to the torch "
-            "package yet")
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_random_seed(cfg.SEED)

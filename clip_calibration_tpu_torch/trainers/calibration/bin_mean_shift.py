@@ -4,11 +4,70 @@ Parity target: reference ``trainers/calibration/multi_proximity_isotonic.py:230-
 (class BinMeanShift): cluster samples into proximity bins (quantile /
 kmeans / uniform edges), fit an independent calibrator per bin, and
 re-scatter calibrated rows back to input order.
+
+The JAX package clusters with scikit-learn's ``KMeans``, which the GPU
+machine lacks; ``kmeans_1d`` runs the same Lloyd iterations in numpy.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def _lloyd_step(x, centers):
+    """One Lloyd iteration as scikit-learn's ``lloyd_iter_chunked_dense``
+    runs it on 1-D data: labels by the least ``c^2 - 2 x c`` (ties to the
+    lower index), summed centres, empty clusters relocated to the points
+    farthest from their old centre, then centres scaled by 1 / weight.
+    Returns (labels, new centres, centre shifts)."""
+    k = len(centers)
+    labels = np.argmin(centers * centers + (-2.0 * x[:, None]) * centers,
+                       axis=1)
+    weights = np.bincount(labels, minlength=k).astype(np.float64)
+    sums = np.bincount(labels, weights=x, minlength=k)
+    empty = np.flatnonzero(weights == 0)
+    if len(empty):
+        dist = (x - centers[labels]) ** 2
+        far = np.argpartition(dist, -len(empty))[:-len(empty) - 1:-1]
+        if dist.max() != 0:
+            for new, idx in zip(empty, far):
+                old = labels[idx]
+                sums[old] -= x[idx]
+                sums[new] = x[idx]
+                weights[new] = 1.0
+                weights[old] -= 1.0
+    new_centers = sums.copy()
+    full = weights > 0
+    new_centers[full] *= 1.0 / weights[full]
+    new_centers[~full] = new_centers[np.argmax(weights)]
+    return labels, new_centers, np.abs(new_centers - centers)
+
+
+def kmeans_1d(x, init, max_iter: int = 300, tol: float = 1e-4):
+    """Centres of ``KMeans(n_clusters=len(init), init=init[:, None],
+    n_init=1).fit(x[:, None])`` (the ``lloyd`` algorithm): data and
+    initial centres shifted by the data's mean, tolerance ``tol`` times
+    the data's variance, stop when the labels repeat or the squared centre
+    shift falls to the tolerance; the labels of the last centres are not
+    needed here."""
+    x = np.asarray(x, np.float64).reshape(-1)
+    centers = np.array(init, np.float64).reshape(-1)
+    if len(x) < len(centers):
+        raise ValueError(f"n_samples={len(x)} should be >= "
+                         f"n_clusters={len(centers)}.")
+    tol = np.var(x) * tol
+    mean = x.mean()
+    x = x - mean
+    centers = centers - mean
+    labels_old = np.full(len(x), -1)
+    for _ in range(max_iter):
+        labels, centers, shift = _lloyd_step(x, centers)
+        if np.array_equal(labels, labels_old):
+            break
+        if (shift ** 2).sum() <= tol:
+            break
+        labels_old = labels
+    return centers + mean
 
 
 class BinMeanShift:
@@ -32,12 +91,10 @@ class BinMeanShift:
                            self.proximity_bin + 1)
 
     def _edges_kmeans(self, proximity):
-        from sklearn.cluster import KMeans
         lo, hi = proximity.min(), proximity.max()
         uniform = np.linspace(lo, hi, self.proximity_bin + 1)
-        init = ((uniform[1:] + uniform[:-1]) * 0.5)[:, None]
-        km = KMeans(n_clusters=self.proximity_bin, init=init, n_init=1)
-        centers = km.fit(proximity[:, None]).cluster_centers_[:, 0]
+        init = (uniform[1:] + uniform[:-1]) * 0.5
+        centers = kmeans_1d(proximity, init)
         centers.sort()
         inner = (centers[1:] + centers[:-1]) * 0.5
         return np.r_[lo, inner, hi]

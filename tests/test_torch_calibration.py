@@ -188,7 +188,58 @@ def test_bin_calibrators_match_jax(name):
         else:
             cal.fit(probs, labels)
         out.append(cal.transform(probs))
-    np.testing.assert_array_equal(out[0], out[1])
+    # the JAX package fits with scikit-learn, the port with its own numpy
+    # isotonic regression (same algorithm, same order of operations), so
+    # the two may part in the last bit where sums are taken in another
+    # order; 1e-12 leaves room for that and for nothing else
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("strategy", ["kmeans", "quantile", "uniform"])
+@pytest.mark.parametrize("name", ["histogram_binning", "isotonic_regression",
+                                  "multi_isotonic_regression"])
+def test_bin_mean_shift_matches_jax(name, strategy):
+    """BinMeanShift (the port's numpy k-means and isotonic fits against
+    scikit-learn's in the JAX package), fit and transform, with tied
+    proximities."""
+    from clip_calibration_tpu.trainers.calibration import bin_mean_shift as JM
+    from clip_calibration_tpu.trainers.calibration import binning as JB
+    from clip_calibration_tpu_torch.trainers.calibration import (
+        bin_mean_shift as TM)
+    from clip_calibration_tpu_torch.trainers.calibration import binning as TB
+    rng = np.random.default_rng(7)
+    logits = rng.normal(size=(300, 6)) * 2
+    labels = rng.integers(0, 6, 300)
+    prox = np.round(np.exp(-rng.random(300) * 3) ** 2, 3)
+    test_logits, test_prox = logits[:120] * 1.3, prox[:120] * 0.9 + 0.05
+    out = []
+    for mod, binning in ((JM, JB), (TM, TB)):
+        method = {"histogram_binning": binning.HistogramBinning,
+                  "isotonic_regression": binning.IsotonicRegression,
+                  "multi_isotonic_regression":
+                      binning.MultiIsotonicRegression}[name]
+        kwargs = {"bins": 10} if name == "histogram_binning" else {}
+        cal = mod.BinMeanShift(name, method, bin_strategy=strategy,
+                               proximity_bin=7, **kwargs)
+        fitted = cal.fit_transform(logits, prox, labels)
+        out.append((cal.bin_edges, fitted,
+                    cal.transform(test_logits, test_prox)))
+    for want, got in zip(*out):
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_kmeans_1d_matches_sklearn_relocating_empty_clusters():
+    """More centres than the data fills: scikit-learn relocates the empty
+    clusters to the farthest points; so does the port."""
+    from sklearn.cluster import KMeans
+    from clip_calibration_tpu_torch.trainers.calibration.bin_mean_shift \
+        import kmeans_1d
+    x = np.r_[np.zeros(20), np.full(5, 0.9), [0.5, 1.0, 0.93]]
+    init = np.linspace(0.0, 0.2, 6)
+    want = KMeans(n_clusters=6, init=init[:, None], n_init=1).fit(
+        x[:, None]).cluster_centers_[:, 0]
+    np.testing.assert_allclose(kmeans_1d(x, init), want, rtol=1e-12,
+                               atol=1e-12)
 
 
 # ------------------------------------------------------------- configs

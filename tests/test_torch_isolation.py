@@ -44,6 +44,7 @@ def test_port_has_its_own_assets():
     assert osp.exists(osp.join(PORT, "csrc", "mha_qkv_fwd.cu"))
     assert osp.exists(osp.join(PORT, "csrc", "mha_qkv_bwd.cu"))
     assert osp.exists(osp.join(PORT, "csrc", "int8_matmul.cu"))
+    assert osp.exists(osp.join(PORT, "csrc", "int8_attention.cu"))
 
 
 _BLOCKER = textwrap.dedent("""
@@ -122,6 +123,93 @@ def test_cli_stage_runs_with_jax_and_sklearn_blocked(tmp_path):
              {"CLIP_CHECKPOINT_DIR": osp.join(FIX, "weights")})
     assert r.returncode == 0, r.stderr[-3000:]
     assert "=> result" in open(tmp_path / "out" / "log.txt").read()
+
+
+BIN_STAGES = [  # (output dir, calibration config)
+    ("out/iso_procal", {"BASE_CALIBRATION_MODE": "bin_based",
+                        "BIN_CALIBRATOR_NAME": "isotonic_regression",
+                        "IF_PROCAL": True}),
+    ("out/multi_iso", {"BASE_CALIBRATION_MODE": "bin_based",
+                       "BIN_CALIBRATOR_NAME": "multi_isotonic_regression"}),
+]
+
+
+def test_cli_bin_calibrators_run_with_sklearn_blocked(tmp_path):
+    """Two ZeroshotCLIP stages of the CLI with ``CALIBRATION.BIN``
+    (isotonic regression inside the proximity-binned BinMeanShift, and
+    multi-class isotonic regression) and a k-means BinMeanShift, without
+    jax, sklearn or matplotlib. Each stage's calibrated probabilities are
+    held to the JAX package's calibrator (scikit-learn's fits) on the same
+    inputs, to 1e-12."""
+    import shutil
+    import numpy as np
+    from clip_calibration_tpu.config import get_cfg_default
+    from clip_calibration_tpu.trainers.calibration.vl_calibrator import (
+        VLCalibration)
+    shutil.copytree(osp.join(FIX, "data", "caltech-101"),
+                    tmp_path / "data" / "caltech-101")
+    args = ["--device", "cpu", "--seed", "1", "--backbone", "ViT-Test",
+            "--root", "data", "--trainer", "ZeroshotCLIP",
+            "--dataset-config-file",
+            osp.join(REPO, "configs", "datasets", "caltech101.yaml"),
+            "--config-file", osp.join(FIX, "coop_fp32.yaml")]
+    opts = ["DATASET.NUM_SHOTS", "4", "MODEL.PRECISION", "fp32",
+            "INPUT.SIZE", "(32, 32)", "DATASET.SUBSAMPLE_CLASSES", "base"]
+    stages = [(out, json.dumps(cal)) for out, cal in BIN_STAGES]
+    code = textwrap.dedent(f"""
+        import runpy
+        import numpy as np
+        from clip_calibration_tpu_torch.trainers.calibration import (
+            bin_mean_shift, binning, vl_calibrator)
+        predict = vl_calibrator.VLCalibration.predict
+
+        def recorded(self, logits, test_proximity):
+            probs = predict(self, logits, test_proximity)
+            np.savez(self.cfg.OUTPUT_DIR + "/calibrated.npz",
+                     val_logits=self.val_logits, val_labels=self.val_labels,
+                     val_knn=self.val_image_knn_dists, logits=logits,
+                     proximity=test_proximity, probs=probs)
+            return probs
+
+        vl_calibrator.VLCalibration.predict = recorded
+        for out, cal in {stages!r}:
+            sys.argv = (["train"] + {args!r} + ["--output-dir", out,
+                        "--calibration-config", cal] + {opts!r})
+            runpy.run_module("clip_calibration_tpu_torch.train",
+                             run_name="__main__")
+            sys.stdout = sys.__stdout__
+        rng = np.random.default_rng(0)
+        prox = rng.random(60) ** 2
+        km = bin_mean_shift.BinMeanShift(
+            "isotonic_regression", binning.IsotonicRegression,
+            bin_strategy="kmeans", proximity_bin=4)
+        np.save("kmeans_probs.npy", km.fit_transform(
+            rng.normal(size=(60, 3)), prox, rng.integers(0, 3, 60)))
+        np.save("kmeans_edges.npy", km.bin_edges)
+        assert sys.modules["jax"] is None and sys.modules["sklearn"] is None
+        print("ok")
+    """)
+    r = _run(code, str(tmp_path),
+             {"CLIP_CHECKPOINT_DIR": osp.join(FIX, "weights")})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")
+    assert np.isfinite(np.load(tmp_path / "kmeans_probs.npy")).all()
+    assert len(np.load(tmp_path / "kmeans_edges.npy")) == 5
+    for out, cal in BIN_STAGES:
+        rec = np.load(tmp_path / out / "calibrated.npz")
+        cfg = get_cfg_default()
+        jax_cal = VLCalibration(
+            cfg, "bin_based", cal["BIN_CALIBRATOR_NAME"], False,
+            cal.get("IF_PROCAL", False),
+            {"val_logits": rec["val_logits"], "val_labels": rec["val_labels"],
+             "val_image_knn_dists": rec["val_knn"]}, None)
+        jax_cal.fit()
+        want = jax_cal.predict(rec["logits"], rec["proximity"])
+        np.testing.assert_allclose(rec["probs"], want, rtol=1e-12,
+                                   atol=1e-12)
+        log = ("log_" + cal["BIN_CALIBRATOR_NAME"]
+               + ("_procal" if cal.get("IF_PROCAL") else "") + ".txt")
+        assert "=> result" in open(tmp_path / out / log).read()
 
 
 def test_cli_training_runs_with_jax_and_sklearn_blocked(tmp_path):
@@ -244,9 +332,11 @@ def test_library_constructors_default_to_cuda_and_raise():
     cfg = get_cfg_default()
     cfg.TRAINER.NAME = "ZeroshotCLIP"
     from clip_calibration_tpu_torch.serving import Predictor
+    from clip_calibration_tpu_torch import probe_int8_attention
     for call in (lambda: build_trainer(cfg),
                  lambda: load_clip_backbone("ViT-Test"),
                  lambda: Predictor("ViT-Test", ["a", "b"]),
+                 lambda: probe_int8_attention.main(["1", "8", "64", "1"]),
                  lambda: get_knn_dists(np.zeros((3, 2)), np.zeros((2, 2)), 1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
