@@ -49,7 +49,7 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    the plain version's, ``torch._int_mm``'s and the bound.
 9. ``kernel int8_attention``: K4, each variant, against its plain version
    at the probe's shape and at edges (L 77 causal, L 197 unpadded, head
-   dim 32, a batch of 1), with its time, the plain version's, SDPA's
+   dim 32, batches of 1 and 2, L 1024), with its time, the plain version's, SDPA's
    (fp32_scores only) and the bound.
 10. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
    against the same weights on the CPU (plain version), fp32.
@@ -201,6 +201,9 @@ EDGES = [
     (4, 17, 32, 64, 4, False),       # head dim 16 (ViT-Test text)
     (2, 50, 50, 256, 8, True),       # head dim 32
 ]
+# K1 only: batch 1 at a long sequence (the launcher splits the queries
+# into one-warp blocks to fill the card)
+K1_EDGES = EDGES + [(1, 1024, 1024, 1024, 16, False)]
 
 
 def check_kernels(device, launched):
@@ -256,7 +259,7 @@ def check_kernels(device, launched):
     del flush
 
     errors = []
-    for B, real, L, D, H, causal in EDGES:
+    for B, real, L, D, H, causal in K1_EDGES:
         mask = pad_mask(real, L, causal, device)
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((B, L, 3 * D), generator=gen, device=device,
@@ -1182,6 +1185,8 @@ K4_EDGES = [
     (3, 197, 768, 12, 197, False),   # L 197, no padding, no mask
     (2, 208, 384, 12, 197, False),   # head dim 32: 1/sqrt(d) not 2^-k
     (1, 208, 768, 12, 197, False),   # a batch of 1
+    (2, 208, 768, 12, 197, False),   # B H = 24 < 132 SMs: queries split
+    (1, 1024, 768, 12, 1000, False),  # L at the kernel's 1024 limit
 ]
 
 

@@ -45,7 +45,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "attention_tile.cuh"
+
 namespace {
+
+using namespace attn_tile;
 
 constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int THREADS = 256;     // 8 warps: 2 along M x 4 along N
@@ -145,16 +149,6 @@ __device__ __forceinline__ void store_tile(int8_t* sa, int8_t* sb,
     *reinterpret_cast<uint32_t*>(dst + j * ROW) = lo[j];
     *reinterpret_cast<uint32_t*>(dst + (j + 4) * ROW) = hi[j];
   }
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __global__ void __launch_bounds__(THREADS, 2)

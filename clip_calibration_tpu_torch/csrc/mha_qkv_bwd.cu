@@ -63,7 +63,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_tile.cuh"
+
 namespace {
+
+using namespace attn_tile;
 
 // ---------------------------------------------------------------------------
 // bf16: mma.sync tensor-core kernels
@@ -73,38 +77,6 @@ constexpr int MMA_WARPS = 4;
 constexpr int MROWS = 16 * MMA_WARPS;  // rows a block owns
 constexpr int MTILE = 64;              // rows of the streamed tile
 constexpr int PAD = 8;                 // bf16 per smem row: no bank conflicts
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four transposed 8x8 bf16 matrices from shared memory (see K1): each
-// thread receives, per matrix, the B fragment of a row-major [k][n] tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
 
 // A fragments of rows r0 = row0 + g and r1 = r0 + 8 of a [rows, HD] bf16
 // matrix with row stride `stride`; rows at or past L read as zero.

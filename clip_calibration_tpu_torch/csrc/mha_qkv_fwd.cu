@@ -8,243 +8,301 @@
 // qkv[b] ([L, 3D], row stride 3D) and an additive fp32 [L, L] mask shared
 // by every row and head. Scores, softmax and the P.V sums are fp32.
 //
-// What bounds it on an H100 SXM: at the CLIP shapes the bf16 case is
-// memory-bound. ViT-B/16 vision, qkv [32, 208, 2304] bf16: 41.1 MB moved
-// (qkv and mask in, out) is 12.3 us at 3.35 TB/s, against 4.25 GFLOP =
-// 4.3 us at the 989 TFLOP/s bf16 tensor-core peak. In fp32 (no tensor
-// cores) the same work is 63 us at the 67 TFLOP/s fp32 peak: bound by
-// operations. What the design does about it: every qkv element is read
-// from device memory once per block that needs it and the [L, L] scores
-// never leave the SM (no [B, H, L, L] tensor, no head transposes: q/k/v
-// are read in place from the packed layout and the output is written
-// straight into its head's columns).
+// Bound on an H100 SXM at the main shape (ViT-B/16 vision, qkv
+// [32, 208, 2304] bf16, 12 heads, d 64): bytes. qkv 30.7 MB + mask 0.17 MB
+// in, out 10.2 MB = 41.1 MB, 12.3 us at 3.35 TB/s, against 4 B H L^2 d =
+// 4.25 GFLOP, 4.3 us at the 989 TFLOP/s bf16 peak. In fp32 (no tensor
+// cores) the same work is 63 us at the 67 TFLOP/s fp32 peak: operations.
 //
-// Unlike the TPU kernel, which holds one whole [L, 3D] row in VMEM and
-// loops over heads, a block here owns one tile of queries of one head
-// (grid: query tiles x heads x batch) and streams the keys in tiles
-// through shared memory with an online softmax (fp32 running max and
-// running sum per row, fp32 accumulator in registers). No [L, L] block is
-// ever resident, so any L fits: at ViT-L/14@336px in fp32, K and V of one
-// head alone would exceed the 227 KB of shared memory.
+// DRAM and L2 per call at that shape: every qkv element comes from DRAM
+// once (41.1 MB in all; the blocks that share a head run side by side).
+// From L2 the bf16 kernel reads each head's K and V once per query chunk
+// of 64 rows (4 chunks at L 208: 81.7 MB), q once (10.2 MB) and each mask
+// row once per block, i.e. once per group of HG heads (HG 2 at batch 32:
+// 6 x 0.17 MB per batch row, 33.2 MB): about 125 MB. The design before
+// this one read a 64 x 64 fp32 mask tile per block and key tile (101 MB)
+// besides K and V, about 193 MB.
 //
-// Two kernels, by input type; both simple (synchronous tile loads, no
-// TMA/wgmma yet):
-// - bf16: tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate). 4 warps x 16 query rows; S = Q K^T and O += P V per
-//   64-key tile, with K, V and the tile's mask staged in shared memory by
-//   coalesced loads. The S accumulator fragment is re-packed in registers
-//   as the A operand of P V (P rounded to bf16, as the JAX kernel rounds
-//   P to v's dtype); V's B fragments come from ldmatrix.trans.
-// - fp32: one thread per query row, fp32 FMAs from shared-memory tiles
-//   (broadcast reads), so fp32 runs stay full fp32 (no TF32).
+// What the design does about it, bf16 (mma.sync m16n8k16, bf16 in, fp32
+// accumulate, online softmax):
+// - A block is NW warps (1, 2 or 4) x 16 query rows of one batch row and
+//   walks over a group of HG heads (grid: query chunks x head groups x
+//   batch). The launcher picks NW and HG so that the grid fills the 132
+//   SMs: NW 1 at batch 1 (156 blocks at L 208), NW 4 and HG up to 4 at
+//   batch 32-64. No warp is idle because L is short (NW 2 at L 32).
+// - The chunk's mask rows [16 NW, L] are staged in shared memory once and
+//   serve every head of the group (where they fit, 60 KB; else, at long L,
+//   the mask tile streams with the keys and HG is 1).
+// - K and V arrive in 64-key tiles through a two-stage cp.async ring that
+//   runs across the head boundary, with one barrier a tile: the copy of
+//   tile j + 1 (and, at a head's first tile, its q rows) is in flight
+//   while the warps compute tile j. No synchronous load is left in the
+//   loop. K's B fragments come from ldmatrix.
+// - A ragged last tile costs what it holds, to 16 keys: 16-key chunks past
+//   L are skipped (the 208th key ends a 16-key tile; the old kernel ran 48
+//   padding keys at full cost).
+// - The S accumulator fragment is re-packed in registers as the A operand
+//   of P V (P rounded to bf16 unnormalised; the JAX kernel rounds the
+//   normalised P to v's dtype); V's B fragments come from ldmatrix.trans.
+//   The [L, L] scores never leave the SM and the output is written once,
+//   straight into its head's columns. exp is __expf (ex2.approx of
+//   x log2 e), whose error is far below bf16's.
+// fp32: one thread per query row, fp32 FMAs from shared-memory tiles
+// (broadcast reads), so fp32 runs stay full fp32 (no TF32); unchanged.
 //
 // Masks use finfo(float32).min, never -inf, as the towers build them. The
 // running max starts at -FLT_MAX, so a tile whose keys are all masked for
 // a row contributes exp(0) terms exactly as a plain softmax over such a
 // row would, and the first finite key rescales them by exp(-FLT_MAX - m)
-// = 0. Keys past L (the ragged edge of the last tile) get no weight;
-// query rows past L are computed and never stored.
+// = 0. Keys past L get no weight; query rows past L are zeros in shared
+// memory, computed and never stored.
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_tile.cuh"
+
 namespace {
+
+using namespace attn_tile;
 
 // ---------------------------------------------------------------------------
 // bf16: mma.sync tensor-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_WARPS = 4;
-constexpr int MBQ = 16 * MMA_WARPS;  // query rows per block
-constexpr int MBK = 64;              // keys per shared-memory tile
-constexpr int PAD = 8;               // bf16 per smem row: no bank conflicts
+constexpr int MBK = 64;  // keys per ring tile
+// ring depth: the copy of tile j + 1 overlaps the products on tile j (a
+// third stage measured no faster on the H100 and costs the occupancy of
+// the staged mask); the two q buffers below rely on it
+constexpr int STAGES = 2;
+constexpr int MT_STRIDE = MBK + 8;  // floats per row of a streamed mask tile
+// the largest staged mask (bytes): two blocks of 4 warps still fit an SM
+constexpr int MASK_SMEM_MAX = 60 * 1024;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <int HD, int NW>
+struct Fwd {
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int ROWS = 16 * NW;       // query rows per block
+  static constexpr int KS = HD + 8;          // bf16 per K/V/q smem row
+  static constexpr int KV = MBK * KS;        // bf16 per K (or V) tile
+  // shared memory: the ring (K and V per stage), q (two heads), the mask
+  static constexpr int RING_BYTES = STAGES * 2 * KV * 2;
+  static constexpr int Q_BYTES = 2 * ROWS * KS * 2;
+  static size_t smem(bool whole, int mstride) {
+    return RING_BYTES + Q_BYTES +
+           (whole ? (size_t)ROWS * mstride * 4
+                  : (size_t)STAGES * ROWS * MT_STRIDE * 4);
+  }
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Four transposed 8x8 bf16 matrices from shared memory: lanes 8i..8i+7
-// give the row addresses of matrix i, and each thread receives, per
-// matrix, the pair (rows 2t, 2t+1; column g) — the B fragment of a
-// row-major [k][n] tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): g = lane / 4, t = lane % 4.
-// A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
-// a3 (g+8, 2t+8..). B 16x8: b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g).
-// C 16x8: c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1).
-template <int HD>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
+// Fragment layouts: attention_tile.cuh.
+template <int HD, int NW, bool WHOLE>
+__global__ void __launch_bounds__(NW * 32)
     mha_qkv_fwd_bf16(const __nv_bfloat16* __restrict__ qkv,
                      const float* __restrict__ mask,
-                     __nv_bfloat16* __restrict__ out, int L, int D,
-                     float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[MBK][HD + PAD];
-  __shared__ __align__(16) __nv_bfloat16 vs[MBK][HD + PAD];
-  // mask tile; a row stride of 8 (mod 32) words keeps the float2 reads
-  // below free of bank conflicts
-  __shared__ __align__(16) float ms[MBQ][MBK + 8];
+                     __nv_bfloat16* __restrict__ out, int L, int D, int HG,
+                     int mstride, float scale) {
+  using F = Fwd<HD, NW>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* qs = ring + STAGES * 2 * F::KV;
+  float* ms = reinterpret_cast<float*>(smem + F::RING_BYTES + F::Q_BYTES);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q_blk = blockIdx.x * MBQ;
-  const int r0 = q_blk + warp * 16 + g;  // this thread's rows: r0 and r1
-  const int r1 = r0 + 8;
-  const bool active = q_blk + warp * 16 < L;
+  const int q0 = blockIdx.x * F::ROWS, h0 = blockIdx.y * HG, b = blockIdx.z;
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const bool active = q0 + warp * 16 < L;
   const long long stride = 3LL * D;
   const __nv_bfloat16* base = qkv + (long long)b * L * stride;
-  const __nv_bfloat16* qb = base + h * HD;
-  const __nv_bfloat16* kb = base + D + h * HD;
-  const __nv_bfloat16* vb = base + 2 * D + h * HD;
+  const int ntiles = (L + MBK - 1) / MBK;
+  const int total = HG * ntiles;
+
+  // tile i of the walk: head h0 + i / ntiles, keys (i % ntiles) * MBK ..
+  auto issue = [&](int i) {
+    const int hh = i / ntiles, k0 = (i % ntiles) * MBK, h = h0 + hh;
+    __nv_bfloat16* kt = ring + (i % STAGES) * 2 * F::KV;
+    load_tile<MBK, HD>(kt, base + D + h * HD, stride, k0, L, F::THREADS);
+    load_tile<MBK, HD>(kt + F::KV, base + 2 * D + h * HD, stride, k0, L,
+                       F::THREADS);
+    if (k0 == 0)  // a head's first tile brings its q rows
+      load_tile<F::ROWS, HD>(qs + (hh & 1) * F::ROWS * F::KS, base + h * HD,
+                             stride, q0, L, F::THREADS);
+    if constexpr (!WHOLE)
+      load_mask(ms + (i % STAGES) * F::ROWS * MT_STRIDE, MT_STRIDE, mask,
+                L, q0, F::ROWS, k0, MBK, F::THREADS);
+  };
+
+  if constexpr (WHOLE)
+    load_mask(ms, mstride, mask, L, q0, F::ROWS, 0, (L + 15) / 16 * 16,
+              F::THREADS);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < total) issue(i);
+    cp_async_commit();
+  }
 
   uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r0 < L ? ld_pair(qb + r0 * stride + c) : 0u;
-    qa[kk][1] = r1 < L ? ld_pair(qb + r1 * stride + c) : 0u;
-    qa[kk][2] = r0 < L ? ld_pair(qb + r0 * stride + c + 8) : 0u;
-    qa[kk][3] = r1 < L ? ld_pair(qb + r1 * stride + c + 8) : 0u;
-  }
-
   float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
+  float m[2], l[2];
 
-  for (int k0 = 0; k0 < L; k0 += MBK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < MBK * HD / 8; i += MMA_WARPS * 32) {
-      const int r = i / (HD / 8), c = (i % (HD / 8)) * 8, key = k0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key < L) {
-        kv = *reinterpret_cast<const uint4*>(kb + key * stride + c);
-        vv = *reinterpret_cast<const uint4*>(vb + key * stride + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[r][c]) = kv;
-      *reinterpret_cast<uint4*>(&vs[r][c]) = vv;
-    }
-    for (int i = tid; i < MBQ * MBK; i += MMA_WARPS * 32) {
-      const int r = i / MBK, c = i % MBK, row = q_blk + r, key = k0 + c;
-      ms[r][c] = (row < L && key < L) ? mask[(long long)row * L + key] : 0.f;
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    float s[MBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < MBK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        mma_bf16(s[n], qa[kk], ld_pair(&ks[n * 8 + g][kk * 16 + 2 * t]),
-                 ld_pair(&ks[n * 8 + g][kk * 16 + 2 * t + 8]));
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile i landed
+    __syncthreads();  // everyone's; and tile i - 1 is consumed
+    if (i + STAGES - 1 < total) issue(i + STAGES - 1);  // tile i - 1's stage
+    cp_async_commit();
+    const int hh = i / ntiles, k0 = (i % ntiles) * MBK, h = h0 + hh;
+    const int nk = min(MBK, L - k0);
+    const __nv_bfloat16* ks = ring + (i % STAGES) * 2 * F::KV;
+    const __nv_bfloat16* vs = ks + F::KV;
+    const float* mrow;
+    int mld;
+    if constexpr (WHOLE) {
+      mrow = ms + (warp * 16 + g) * mstride + k0;
+      mld = mstride;
+    } else {
+      mrow = ms + (i % STAGES) * F::ROWS * MT_STRIDE +
+             (warp * 16 + g) * MT_STRIDE;
+      mld = MT_STRIDE;
     }
 
-    float tmax[2] = {-FLT_MAX, -FLT_MAX};
+    if (active) {
+      if (k0 == 0) {  // a new head: its q fragments, fresh statistics
+        const __nv_bfloat16* qrow =
+            qs + (hh & 1) * F::ROWS * F::KS + (warp * 16 + g) * F::KS;
 #pragma unroll
-    for (int n = 0; n < MBK / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      const float2 m0 = *reinterpret_cast<const float2*>(&ms[warp * 16 + g][c]);
-      const float2 m1 =
-          *reinterpret_cast<const float2*>(&ms[warp * 16 + g + 8][c]);
-      const float mk[4] = {m0.x, m0.y, m1.x, m1.y};
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int c = kk * 16 + 2 * t;
+          qa[kk][0] = ld_pair(qrow + c);
+          qa[kk][1] = ld_pair(qrow + 8 * F::KS + c);
+          qa[kk][2] = ld_pair(qrow + c + 8);
+          qa[kk][3] = ld_pair(qrow + 8 * F::KS + c + 8);
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // keys past L get no weight
-        const float v =
-            k0 + c + (e & 1) < L ? s[n][e] * scale + mk[e] : -INFINITY;
-        s[n][e] = v;
-        tmax[e / 2] = fmaxf(tmax[e / 2], v);
+        for (int n = 0; n < HD / 8; ++n)
+          o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+        m[0] = m[1] = -FLT_MAX;
+        l[0] = l[1] = 0.f;
       }
-    }
-    float alpha[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // the 4 threads of a group share a row
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m[i], tmax[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < MBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e / 2]);
-        rsum[e / 2] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
-      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
-      l[i] = l[i] * alpha[i] + rsum[i];
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kc = 0; kc < MBK / 16; ++kc) {  // 16 keys per P.V step
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int n = 0; n < HD / 8; n += 2) {
-        uint32_t vb0, vb1, vb2, vb3;  // B fragments of d-tiles n, n+1
-        ldmatrix_x4_trans(vb0, vb1, vb2, vb3,
-                          &vs[kc * 16 + lane % 16][n * 8 + (lane / 16) * 8]);
-        mma_bf16(o[n], pa, vb0, vb1);
-        mma_bf16(o[n + 1], pa, vb2, vb3);
-      }
-    }
-  }
 
-  if (!active) return;
-  // l >= 1: the running max itself contributes exp(0)
-  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-  __nv_bfloat16* ob = out + (long long)b * L * D + h * HD + 2 * t;
+      // one step over the tile; a full tile (every tile but a ragged last
+      // one) compiles without the 16-key guards, so the scheduler can
+      // interleave its mma chains and exps across the whole tile
+      auto step = [&](auto full) {
+        constexpr bool FULL = decltype(full)::value;
+        // scores of 16-key chunks that hold a key < L; the rest stay -inf
+        float s[MBK / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    if (r0 < L)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * D + n * 8) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < L)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * D + n * 8) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+        for (int np = 0; np < MBK / 16; ++np) {  // n-tiles 2 np, 2 np + 1
+          float acc[2][4] = {};
+          if (FULL || np * 16 < nk) {
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+              uint32_t b0, b1, b2, b3;
+              ldmatrix_x4(b0, b1, b2, b3,
+                          ks + (np * 16 + (lane / 16) * 8 + lane % 8) * F::KS +
+                              kk * 16 + ((lane / 8) & 1) * 8);
+              mma_bf16(acc[0], qa[kk], b0, b1);
+              mma_bf16(acc[1], qa[kk], b2, b3);
+            }
+          }
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int n = 2 * np + half;
+            s[n][0] = s[n][1] = s[n][2] = s[n][3] = -INFINITY;
+            if (!FULL && np * 16 >= nk) continue;
+            const int c = n * 8 + 2 * t;
+            const float2 m0 = *reinterpret_cast<const float2*>(mrow + c);
+            const float2 m1 =
+                *reinterpret_cast<const float2*>(mrow + 8 * mld + c);
+            const float mk[4] = {m0.x, m0.y, m1.x, m1.y};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              // keys past L get no weight
+              const float v =
+                  FULL || c + (e & 1) < nk
+                      ? acc[half][e] * scale + mk[e]
+                      : -INFINITY;
+              s[n][e] = v;
+            }
+          }
+        }
+        float tmax[2] = {row_reduce<false>(s, 0), row_reduce<false>(s, 1)};
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // the 4 threads of a group share a row
+          tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+          tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+          const float m_new = fmaxf(m[r], tmax[r]);
+          alpha[r] = __expf(m[r] - m_new);
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int n = 0; n < MBK / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = !FULL && (n / 2) * 16 >= nk
+                          ? 0.f
+                          : __expf(s[n][e] - m[e / 2]);
+        }
+        float rsum[2] = {row_reduce<true>(s, 0), row_reduce<true>(s, 1)};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+          rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+          l[r] = l[r] * alpha[r] + rsum[r];
+        }
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][0] *= alpha[0];
+          o[n][1] *= alpha[0];
+          o[n][2] *= alpha[1];
+          o[n][3] *= alpha[1];
+        }
+#pragma unroll
+        for (int kc = 0; kc < MBK / 16; ++kc) {  // 16 keys per P.V step
+          if (!FULL && kc * 16 >= nk) continue;
+          const uint32_t pa[4] = {
+              pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+          for (int n = 0; n < HD / 8; n += 2) {
+            uint32_t vb0, vb1, vb2, vb3;  // B fragments of d-tiles n, n+1
+            ldmatrix_x4_trans(
+                vb0, vb1, vb2, vb3,
+                vs + (kc * 16 + lane % 16) * F::KS + n * 8 + (lane / 16) * 8);
+            mma_bf16(o[n], pa, vb0, vb1);
+            mma_bf16(o[n + 1], pa, vb2, vb3);
+          }
+        }
+      };
+      if (nk == MBK)
+        step(std::true_type{});
+      else
+        step(std::false_type{});
+
+      if (k0 + MBK >= L) {  // the head's last tile: normalise and store
+        // l >= 1: the running max itself contributes exp(0)
+        const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+        const int r1 = r0 + 8;
+        __nv_bfloat16* ob = out + (long long)b * L * D + h * HD + 2 * t;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          if (r0 < L)
+            *reinterpret_cast<uint32_t*>(ob + (long long)r0 * D + n * 8) =
+                pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+          if (r1 < L)
+            *reinterpret_cast<uint32_t*>(ob + (long long)r1 * D + n * 8) =
+                pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+        }
+      }
+    }
   }
 }
 
@@ -343,21 +401,80 @@ __global__ void __launch_bounds__(BQ)
   }
 }
 
+// blocks that fill the card: 132 SMs; for the head grouping, four blocks
+// an SM (two resident at a time, two waves)
+constexpr int SMS = 132;
+constexpr int FILL_BLOCKS = 4 * SMS;
+
+template <int HD, int NW, bool WHOLE>
+cudaError_t launch_bf16_kernel(dim3 grid, size_t smem, const void* qkv,
+                               const float* mask, void* out, int L, int D,
+                               int hg, int mstride, float scale,
+                               cudaStream_t stream) {
+  static size_t allowed = 0;
+  auto kernel = mha_qkv_fwd_bf16<HD, NW, WHOLE>;
+  const cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NW * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), mask,
+      static_cast<__nv_bfloat16*>(out), L, D, hg, mstride, scale);
+  return cudaGetLastError();
+}
+
+template <int HD, int NW>
+cudaError_t launch_bf16(const void* qkv, const float* mask, void* out, int B,
+                        int L, int D, int H, float scale,
+                        cudaStream_t stream) {
+  using F = Fwd<HD, NW>;
+  const int chunks = (L + F::ROWS - 1) / F::ROWS;
+  // staged mask row stride: keys to a multiple of 16, then = 8 (mod 32)
+  // words, so the fragment reads' float2 loads are free of bank conflicts
+  const int m16 = (L + 15) / 16 * 16;
+  const int mstride = m16 + ((8 - m16 % 32) + 32) % 32;
+  const bool whole = (long long)F::ROWS * mstride * 4 <= MASK_SMEM_MAX;
+  // the most heads a block walks whose grid still fills the card
+  int hg = 1;
+  if (whole)
+    for (int c = H; c > 1; --c)
+      if (H % c == 0 && (long long)chunks * (H / c) * B >= FILL_BLOCKS) {
+        hg = c;
+        break;
+      }
+  const dim3 grid(chunks, H / hg, B);
+  const size_t smem = F::smem(whole, mstride);
+  return whole ? launch_bf16_kernel<HD, NW, true>(grid, smem, qkv, mask, out,
+                                                  L, D, hg, mstride, scale,
+                                                  stream)
+               : launch_bf16_kernel<HD, NW, false>(grid, smem, qkv, mask,
+                                                   out, L, D, 1, mstride,
+                                                   scale, stream);
+}
+
 template <int HD>
 cudaError_t launch(const void* qkv, const float* mask, void* out, int B,
                    int L, int D, int H, int dtype, cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)HD);
   if (dtype == 1) {
-    const dim3 grid((L + MBQ - 1) / MBQ, H, B);
-    mha_qkv_fwd_bf16<HD><<<grid, MMA_WARPS * 32, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(qkv), mask,
-        static_cast<__nv_bfloat16*>(out), L, D, scale);
-  } else {
-    const dim3 grid((L + BQ - 1) / BQ, H, B);
-    mha_qkv_fwd_f32<HD><<<grid, BQ, 0, stream>>>(
-        static_cast<const float*>(qkv), mask, static_cast<float*>(out), L,
-        D, scale);
+    // 4 warps a block, halved while the grid would leave SMs idle or a
+    // half would already cover L
+    int nw = 4;
+    while (nw > 1 &&
+           (long long)((L + 16 * nw - 1) / (16 * nw)) * H * B < SMS)
+      nw /= 2;
+    while (nw > 1 && 16 * (nw / 2) >= L) nw /= 2;
+    switch (nw) {
+      case 4:
+        return launch_bf16<HD, 4>(qkv, mask, out, B, L, D, H, scale, stream);
+      case 2:
+        return launch_bf16<HD, 2>(qkv, mask, out, B, L, D, H, scale, stream);
+      default:
+        return launch_bf16<HD, 1>(qkv, mask, out, B, L, D, H, scale, stream);
+    }
   }
+  const dim3 grid((L + BQ - 1) / BQ, H, B);
+  mha_qkv_fwd_f32<HD><<<grid, BQ, 0, stream>>>(
+      static_cast<const float*>(qkv), mask, static_cast<float*>(out), L, D,
+      scale);
   return cudaGetLastError();
 }
 

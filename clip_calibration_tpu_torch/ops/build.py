@@ -4,13 +4,15 @@ Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface (loaded with ``ctypes``; no PyTorch headers, so a build takes
 seconds) under ``build/clip_calibration_tpu_torch/`` at the repository
 root, all sources at once (one ``nvcc`` process each, started
-together). A library is rebuilt when its source is newer. A failed build
+together). A library is rebuilt when its source, or any shared header
+``csrc/*.cuh``, is newer. A failed build
 raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import os.path as osp
 import shutil
@@ -58,9 +60,14 @@ def log_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or any shared
+    header (``csrc/*.cuh``, which every source may include)."""
     lib = library_path(name)
-    src = osp.join(CSRC_DIR, SOURCES[name])
-    return not osp.exists(lib) or osp.getmtime(lib) < osp.getmtime(src)
+    if not osp.exists(lib):
+        return True
+    inputs = [osp.join(CSRC_DIR, SOURCES[name])] + glob.glob(
+        osp.join(CSRC_DIR, "*.cuh"))
+    return osp.getmtime(lib) < max(osp.getmtime(p) for p in inputs)
 
 
 def build() -> float:

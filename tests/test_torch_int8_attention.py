@@ -103,6 +103,49 @@ def test_variants_differ_as_the_probe_measures():
     assert 0 < d_qk < d_pv
 
 
+def _one_pass(qkv, mask, n_heads, variant):
+    """K4's one-pass order for fp32_scores and int8_qk, emulated here
+    alone: the plain version's scores, e = exp(s - max) rounded to bf16
+    for the P v product, the fp32 sum l of the unrounded e, and one
+    division by l at the end (the plain version rounds the normalised
+    p)."""
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    d = D // n_heads
+    scale = 1.0 / d ** 0.5
+    q, k, v = (t.reshape(B, L, n_heads, d).transpose(1, 2)
+               for t in qkv.split(D, dim=-1))
+    if variant == "fp32_scores":
+        qs = q * torch.tensor(scale, dtype=qkv.dtype)
+        s = torch.matmul(qs.float(), k.float().transpose(-1, -2)) + mask
+    else:
+        qi, sq = K4.quantize_rows(q.float() * scale)
+        ki, sk = K4.quantize_rows(k.float())
+        si = (qi.long() @ ki.long().transpose(-1, -2)).float()
+        s = si * (sq * sk.transpose(-1, -2)) + mask
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(e.to(qkv.dtype).float(), v.float()) / e.sum(
+        dim=-1, keepdim=True)
+    return o.to(qkv.dtype).transpose(1, 2).reshape(B, L, D)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("variant", ["fp32_scores", "int8_qk"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_one_pass_rounding_stays_within_tolerance(shape, variant, seed):
+    """Rounding P before normalising it (the one-pass kernel) keeps the
+    output within the rule ``k4_tolerance`` holds the kernel to: 2 bf16
+    ulps of the plain version's largest output."""
+    B, L, D, H, real, causal = SHAPES[shape]
+    qkv = _inputs(B, L, D, seed)
+    mask = torch.from_numpy(_mask(L, real, causal))
+    want = K4.int8_attention_reference(qkv, mask, H, variant).float()
+    got = _one_pass(qkv, mask, H, variant).float()
+    assert torch.isfinite(got).all()
+    top = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2 * _bf16_ulp(top)
+
+
 @pytest.mark.parametrize("d", [32, 64])
 def test_quantize_rows_bit_equal_to_jax(d):
     x = np.random.default_rng(d).standard_normal((3, 50, d)).astype(

@@ -150,3 +150,52 @@ def test_interpret_prompt_prints_the_jax_scripts_lines(tmp_path):
         assert any(ln.startswith("SHOWING RESULTS FOR: shallow ctx")
                    for ln in got)
     assert sum(ln.startswith("SHOWING RESULTS FOR: layer") for ln in got) == 2
+
+
+@pytest.mark.parametrize("name", ["mha_qkv_fwd", "mha_qkv_bwd",
+                                  "int8_matmul", "int8_attention"])
+def test_build_is_stale_when_a_shared_header_changes(tmp_path, monkeypatch,
+                                                     name):
+    """``ops/build.py`` rebuilds a kernel whose library is older than its
+    source or than any ``csrc/*.cuh`` it may include (a copy of ``csrc/``
+    and a build directory with up-to-date libraries, then one header
+    touched)."""
+    import shutil
+    from clip_calibration_tpu_torch.ops import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    out = tmp_path / "build"
+    out.mkdir()
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(out))
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "csrc/ holds no shared header"
+    sources = [csrc / build.SOURCES[n] for n in build.SOURCES]
+    for p in sources + headers:
+        os.utime(p, (1000.0, 1000.0))
+    assert build._stale(name)  # no library yet
+    lib = build.library_path(name)
+    open(lib, "wb").close()
+    os.utime(lib, (2000.0, 2000.0))
+    assert not build._stale(name)
+    os.utime(csrc / build.SOURCES[name], (3000.0, 3000.0))
+    assert build._stale(name)  # its own source is newer
+    os.utime(lib, (4000.0, 4000.0))
+    assert not build._stale(name)
+    os.utime(headers[0], (5000.0, 5000.0))
+    assert build._stale(name)  # a shared header is newer
+
+
+@pytest.mark.parametrize("source", ["mha_qkv_fwd.cu", "int8_attention.cu"])
+def test_kernel_variants_apply_to_the_sources(source):
+    """Every recorded variant of ``tools/kernel_variants.py`` still finds
+    the text it replaces in the kernel's source (they time on the card
+    only); a missing text raises."""
+    from clip_calibration_tpu_torch.tools import kernel_variants as kv
+    texts = kv.apply_variants(source, kv.RECORDED[source])
+    assert set(texts) == {"source", *kv.RECORDED[source]}
+    for name, text in texts.items():
+        assert name == "source" or text != texts["source"]
+    with pytest.raises(ValueError, match="is not in"):
+        kv.apply_variants(source, {"bad": [["no such text", ""]]})
+    assert kv.main([]) == 2
