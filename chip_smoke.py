@@ -7,7 +7,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
 
 1. ``env``: torch/CUDA versions and the card (name, power limit).
 2. ``build``: compiles every kernel under ``clip_calibration_tpu_torch/csrc``
-   (one nvcc per source) into ``build/``.
+   (one nvcc per source) into ``build/``; per kernel instance its
+   registers and spilled bytes (ptxas), and the count of tensor-core
+   products (``HMMA``) in the fp32 instances' SASS (``cuobjdump``). Fails
+   if an fp32 instance spills or holds an ``HMMA``.
 3. ``main_path``: the port's CLI at full ViT-B/16 width and depth, bf16, on
    the seeded random init (no accuracy claim): ZeroshotCLIP on the base
    classes -> CoOp eval-only on the base classes -> CoOp on the new classes
@@ -23,13 +26,19 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    traces its first 5 steps (``TPU.PROFILE_DIR``, a torch.profiler Chrome
    trace): the ``profile`` line lists their top 10 device kernels by total
    time with counts, and fails unless K1 and K2 (12 a step) are in it.
-5. ``kernel``: each kernel against its plain PyTorch version on the card at
-   every shape and mask the two paths gave it (both record every distinct
+5. ``fp32_path``: the same CLI at ``MODEL.PRECISION fp32``, the
+   golden-parity precision (tests/test_golden_e2e.py): golden stage 1
+   (ZeroshotCLIP on the base classes), then CoOp trained for one epoch of
+   7 steps of 32 (5 shots of the 50 base classes) and tested. Asserts
+   finite metrics and losses, that every tower layer went through the fp32
+   K1 and every train step's 12 text layers through the fp32 K2.
+6. ``kernel``: each kernel against its plain PyTorch version on the card at
+   every shape and mask the paths gave it (each records every distinct
    (qkv shape, heads, dtype, mask)), in bf16 and fp32, with its time, the
    plain version's, one PyTorch library call's (a yardstick only; the port
    never calls it) and the least time the card could take (``bound_ms``);
    then correctness at edge shapes the paths do not reach.
-6. ``serve_path``: the port's serve CLI at ViT-B/16 (bf16, random init)
+7. ``serve_path``: the port's serve CLI at ViT-B/16 (bf16, random init)
    on 84 synthetic images at 224^2 (one full 64-image batch and a 32-row
    bucket) and on one image (the 1-row bucket), in four quantization modes:
    full precision, ``--quantize int8``, ``--quantize w8a8`` calibrating
@@ -40,23 +49,23 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    to direct ``predict``; one eval-only CoOp stage of the train CLI with
    ``TRAINER.QUANT_FROZEN_VISION w8a8``. Asserts finite outputs, K3
    launched 50 times per w8a8 image forward and K1 in every layer.
-7. ``probe_path``: the port's int8 attention probe
+8. ``probe_path``: the port's int8 attention probe
    (``probe_int8_attention``) at its default full width (B 256, L 208,
    D 768, H 12), each variant on K4, one row a variant; asserts K4
    launched in every variant.
-8. ``kernel int8_matmul``: K3 against its plain version (exact) at every
+9. ``kernel int8_matmul``: K3 against its plain version (exact) at every
    (M, K, N) the serve path launched and at edge shapes, with its time,
    the plain version's, ``torch._int_mm``'s and the bound.
-9. ``kernel int8_attention``: K4, each variant, against its plain version
+10. ``kernel int8_attention``: K4, each variant, against its plain version
    at the probe's shape and at edges (L 77 causal, L 197 unpadded, head
    dim 32, batches of 1 and 2, L 1024), with its time, the plain version's, SDPA's
    (fp32_scores only) and the bound.
-10. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
+11. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
    against the same weights on the CPU (plain version), fp32.
-11. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
+12. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
    width, fp32, on the card (K1 and K2) against the CPU (plain versions)
    with the same weights, context and batch.
-12. ``serve_check``: the w8a8 ViT-B/16 vision tower with static scales on
+13. ``serve_check``: the w8a8 ViT-B/16 vision tower with static scales on
    the card (K3) against the same int8 weights and scales on the CPU (the
    plain version), fp32, by the features' cosine similarity.
 
@@ -192,6 +201,22 @@ def mask_kind(mask) -> tuple:
     return kind or "none", real
 
 
+def by_shape(calls):
+    """A recorder's calls merged over dtypes: [(qkv shape, heads, mask,
+    {dtype name: count}), ...], in first-seen order."""
+    import torch
+    out = []
+    for shape, heads, dtype, mask, count in calls:
+        entry = next((e for e in out if e[:2] == (shape, heads)
+                      and torch.equal(e[2], mask)), None)
+        if entry is None:
+            entry = (shape, heads, mask, {})
+            out.append(entry)
+        name = str(dtype).split(".")[-1]
+        entry[3][name] = entry[3].get(name, 0) + count
+    return out
+
+
 # correctness-only shapes the paths do not reach: (B, real L, padded L,
 # D, H, causal)
 EDGES = [
@@ -220,7 +245,7 @@ def check_kernels(device, launched):
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     cases = []
     gen = torch.Generator(device=device).manual_seed(0)
-    for (B, L, D3), H, main_dtype, mask, calls in launched:
+    for (B, L, D3), H, mask, calls in by_shape(launched):
         kind, real = mask_kind(mask)
         D = D3 // 3
         for dtype in (torch.bfloat16, torch.float32):
@@ -238,7 +263,7 @@ def check_kernels(device, launched):
             rec = {
                 "qkv": [B, L, D3], "heads": H, "mask": kind,
                 "real_len": real, "dtype": dname,
-                "main_path_launches": calls if dtype == main_dtype else 0,
+                "main_path_launches": calls.get(dname, 0),
                 "max_abs_err": err, "atol": TOL[dname][0],
                 "rtol": TOL[dname][1], "ok": ok,
                 "ms": time_ms(lambda: mha_qkv(qkv, mask, H), flush),
@@ -554,24 +579,118 @@ def run_train_path(k1, k2):
     return mha_qkv.launches, mha_qkv_bwd.launches
 
 
+#: fp32_path: CoOp shots a base class (50 x 5 = 250 images: 7 steps of 32)
+FP32_SHOTS = 5
+
+
+def run_fp32_path(k1, k2):
+    """Golden stage 1 and a short CoOp training through the port's CLI at
+    ``MODEL.PRECISION fp32``, K1's and K2's entry points recorded by ``k1``
+    and ``k2``. Returns (K1 launches, K2 launches), all fp32."""
+    import torch
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.models.clip import transformer
+    from clip_calibration_tpu_torch.ops.mha_qkv import mha_qkv, mha_qkv_bwd
+    from clip_calibration_tpu_torch.trainers.coop import CoOp
+
+    # seed 1: CoOp's test reads the ZeroshotCLIP base cache of seed 1; 5
+    # shots keep both stages' caches apart from the bf16 paths' (16 shots)
+    common, coop, opts = _common_args(1)
+    # CoOp's towers follow TRAINER.COOP.PREC (as the golden run sets it,
+    # tests/fixtures/golden_e2e/coop_fp32.yaml),
+    # ZeroshotCLIP's MODEL.PRECISION
+    fp32 = ["MODEL.PRECISION", "fp32", "TRAINER.COOP.PREC", "fp32",
+            "DATASET.NUM_SHOTS", str(FP32_SHOTS),
+            "DATASET.SUBSAMPLE_CLASSES", "base", "TRAIN.PRINT_FREQ", "1"]
+    stages = [
+        ("fp32_zsclip_base", ["--trainer", "ZeroshotCLIP", "--config-file",
+                              osp.join(ROOT, "configs", "trainers",
+                                       "ZeroshotCLIP", "vit_b16.yaml")], []),
+        ("fp32_coop_train", coop, ["OPTIM.MAX_EPOCH", "1"]),
+    ]
+    steps = [0]
+    forward_backward = CoOp.forward_backward
+
+    def counted_step(self, batch):
+        steps[0] += 1
+        return forward_backward(self, batch)
+
+    def fp32_count(rec):
+        return sum(c[4] for c in rec.calls if c[2] == torch.float32)
+
+    mha_qkv.launches = mha_qkv_bwd.launches = 0
+    k1_before, k2_before = k1.count(), k2.count()
+    k1_fp32, k2_fp32 = fp32_count(k1), fp32_count(k2)
+    forwards0 = transformer.forwards
+    CoOp.forward_backward = counted_step
+    try:
+        for name, args, extra in stages:
+            launches0 = (mha_qkv.launches, mha_qkv_bwd.launches)
+            fwd0, steps0 = transformer.forwards, steps[0]
+            seconds, log_path = _cli_stage(
+                name, common + args + ["--output-dir",
+                                       osp.join(WORK, "out", name)]
+                + opts + fp32 + extra, "log.txt")
+            losses = [float(x) for x in re.findall(
+                r" loss (\S+) \(", open(log_path).read())]
+            if len(losses) != steps[0] - steps0 or not all(
+                    map(math.isfinite, losses)):
+                raise AssertionError(f"{name}: losses {losses} for "
+                                     f"{steps[0] - steps0} steps")
+            emit("fp32_path", stage=name, seconds=seconds,
+                 precision="fp32",
+                 weights="seeded random init (no accuracy claim)",
+                 steps=steps[0] - steps0, losses=losses,
+                 tower_forwards=transformer.forwards - fwd0,
+                 launches={"mha_qkv_fwd": mha_qkv.launches - launches0[0],
+                           "mha_qkv_bwd": mha_qkv_bwd.launches
+                           - launches0[1]},
+                 metrics=_checked_metrics(name, log_path))
+    finally:
+        CoOp.forward_backward = forward_backward
+    launches = (mha_qkv.launches, mha_qkv_bwd.launches)
+    forwards = transformer.forwards - forwards0
+    # every launch recorded, and every one of them fp32
+    if ((k1.count() - k1_before, k2.count() - k2_before) != launches
+            or (fp32_count(k1) - k1_fp32, fp32_count(k2) - k2_fp32)
+            != launches):
+        raise AssertionError("fp32_path: a kernel launch was not fp32 or "
+                             "was not recorded")
+    # ViT-B/16: 12 layers in each tower; 12 text layers backward a step
+    layers = M.PRESETS["ViT-B/16"]
+    if launches[0] == 0 or launches[0] != layers.vision_layers * forwards:
+        raise AssertionError(f"fp32_path: mha_qkv_fwd launched "
+                             f"{launches[0]} times for {forwards} tower "
+                             f"forwards (want {layers.vision_layers} each)")
+    steps_want = 50 * FP32_SHOTS // 32
+    if (steps[0] != steps_want
+            or launches[1] != layers.transformer_layers * steps[0]):
+        raise AssertionError(f"fp32_path: {steps[0]} steps (want "
+                             f"{steps_want}) launched mha_qkv_bwd "
+                             f"{launches[1]} times (want "
+                             f"{layers.transformer_layers} each)")
+    return launches
+
+
 def check_kernels_bwd(device, launched):
     """K2 vs its plain version, timed, at every (qkv shape, heads, mask)
-    the train path launched it with, in bf16 and fp32, and at the ViT-B/16
-    vision shape with its pad mask (a later slice's shape); then
+    the train paths launched it with, in bf16 and fp32, and at the
+    ViT-B/16 vision shape with its pad mask (a later slice's shape); then
     correctness only at the same edges as K1."""
     import torch
     from clip_calibration_tpu_torch.ops.mha_qkv import (
         mha_qkv_bwd, mha_qkv_bwd_reference)
     from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
                                                             time_ms)
-    cases = [(shape, H, dtype, mask, calls)
-             for shape, H, dtype, mask, calls in launched]
-    cases.append(((32, 208, 2304), 12, None, pad_mask(197, 208, False,
-                                                      device), 0))
+    cases = by_shape(launched)
+    vision = ((32, 208, 2304), 12, pad_mask(197, 208, False, device))
+    if not any(c[:2] == vision[:2] and torch.equal(c[2], vision[2])
+               for c in cases):
+        cases.append(vision + ({},))
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     gen = torch.Generator(device=device).manual_seed(2)
     out = []
-    for (B, L, D3), H, main_dtype, mask, calls in cases:
+    for (B, L, D3), H, mask, calls in cases:
         kind, real = mask_kind(mask)
         D = D3 // 3
         d = D // H
@@ -598,7 +717,7 @@ def check_kernels_bwd(device, launched):
             rec = {
                 "qkv": [B, L, D3], "heads": H, "mask": kind,
                 "real_len": real, "dtype": dname,
-                "main_path_launches": calls if dtype == main_dtype else 0,
+                "main_path_launches": calls.get(dname, 0),
                 "max_abs_err": err, "atol": TOL_BWD[dname][0],
                 "rtol": TOL_BWD[dname][1], "ok": ok,
                 "ms": time_ms(lambda: mha_qkv_bwd(qkv, mask, g, H), flush),
@@ -1297,6 +1416,24 @@ def _kernel_entry(name, source, replaces, launches, cases, **extra):
             **extra, "cases": cases}
 
 
+def fp32_hmma(library: str) -> dict:
+    """fp32 kernel instance -> its tensor-core products (``HMMA``) in the
+    library's SASS, by ``cuobjdump -sass`` beside nvcc; every fp32 instance
+    must have none (full fp32 FMAs, no TF32)."""
+    import subprocess
+    from clip_calibration_tpu_torch.ops import build
+    from clip_calibration_tpu_torch.ops.build import _kernel_name
+    cuobjdump = osp.join(osp.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], check=True,
+                          capture_output=True, text=True).stdout
+    out = {}
+    for func in sass.split("Function : ")[1:]:
+        name = _kernel_name(func.split(None, 1)[0])
+        if "_f32<" in name:
+            out[name] = len(re.findall(r"\bHMMA\b", func))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1322,12 +1459,19 @@ def main() -> int:
     from clip_calibration_tpu_torch.ops import int8_matmul as int8_ops
     from clip_calibration_tpu_torch.ops import mha_qkv as kernels
     seconds = build.build()
-    ptxas = {name: [ln.strip() for ln in
-                    open(build.log_path(name)).read().splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name in build.SOURCES} if seconds else {}
+    ptxas = {name: build.ptxas_report(name) for name in build.SOURCES
+             if osp.exists(build.log_path(name))}
+    hmma = {name: fp32_hmma(build.library_path(name))
+            for name in ("mha_qkv_fwd", "mha_qkv_bwd")}
     emit("build", seconds=seconds, kernels=sorted(build.SOURCES),
-         ptxas=ptxas)
+         ptxas=ptxas, fp32_sass_hmma=hmma)
+    spilled = [fn for report in ptxas.values() for fn, r in report.items()
+               if "_f32<" in fn and r["spill_bytes"]]
+    if spilled or not all(counts and not any(counts.values())
+                          for counts in hmma.values()) or not all(
+            any("_f32<" in fn for fn in ptxas.get(n, {})) for n in hmma):
+        raise AssertionError(f"fp32 kernel instances: spilled {spilled}, "
+                             f"HMMA {hmma}, ptxas {sorted(ptxas)}")
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(osp.join(WORK, "no_weights"))
@@ -1346,6 +1490,7 @@ def main() -> int:
     try:
         k1_main = run_main_path(k1)
         k1_train, k2_train = run_train_path(k1, k2)
+        k1_fp32, k2_fp32 = run_fp32_path(k1, k2)
         k1_serve, k3_serve = run_serve_path(k1, k3)
         k4_probe, probe_rows = run_probe_path()
     finally:
@@ -1373,33 +1518,55 @@ def main() -> int:
     timed(check_serve_tower, device)
     emit("check_seconds", **seconds)
 
+    def of(cases, dtype):
+        return [c for c in cases if c["dtype"] == dtype]
+
     print(json.dumps({"kernels": [
         _kernel_entry(
             "mha_qkv_fwd", "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:36",
-            k1_main + k1_train + k1_serve, cases_fwd,
+            k1_main + k1_train + k1_serve, of(cases_fwd, "bfloat16"),
+            dtype="bfloat16",
             launches_by_path={"main_path": k1_main, "train_path": k1_train,
-                              "serve_path": k1_serve,
+                              "fp32_path": 0, "serve_path": k1_serve,
+                              "probe_path": 0}),
+        _kernel_entry(
+            "mha_qkv_fwd_f32",
+            "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
+            "clip_calibration_tpu/ops/pallas_attention.py:36",
+            k1_fp32, of(cases_fwd, "float32"), dtype="float32",
+            launches_by_path={"main_path": 0, "train_path": 0,
+                              "fp32_path": k1_fp32, "serve_path": 0,
                               "probe_path": 0}),
         _kernel_entry(
             "mha_qkv_bwd", "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
-            k2_train, cases_bwd,
+            k2_train, of(cases_bwd, "bfloat16"), dtype="bfloat16",
             launches_by_path={"main_path": 0, "train_path": k2_train,
-                              "serve_path": 0,
+                              "fp32_path": 0, "serve_path": 0,
+                              "probe_path": 0}),
+        _kernel_entry(
+            "mha_qkv_bwd_f32",
+            "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
+            "clip_calibration_tpu/ops/pallas_attention.py:94",
+            k2_fp32, of(cases_bwd, "float32"), dtype="float32",
+            launches_by_path={"main_path": 0, "train_path": 0,
+                              "fp32_path": k2_fp32, "serve_path": 0,
                               "probe_path": 0}),
         _kernel_entry(
             "int8_matmul", "clip_calibration_tpu_torch/csrc/int8_matmul.cu",
             "clip_calibration_tpu/ops/pallas_int8_matmul.py:35",
             k3_serve, cases_int8,
             launches_by_path={"main_path": 0, "train_path": 0,
-                              "serve_path": k3_serve, "probe_path": 0}),
+                              "fp32_path": 0, "serve_path": k3_serve,
+                              "probe_path": 0}),
         _kernel_entry(
             "int8_attention",
             "clip_calibration_tpu_torch/csrc/int8_attention.cu",
             "benchmarks/probe_int8_attention.py:69", k4_probe, cases_k4,
             launches_by_path={"main_path": 0, "train_path": 0,
-                              "serve_path": 0, "probe_path": k4_probe},
+                              "fp32_path": 0, "serve_path": 0,
+                              "probe_path": k4_probe},
             variants={c["variant"]: {k: c[k] for k in (
                 "main_path_launches", "max_abs_err", "ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by")}

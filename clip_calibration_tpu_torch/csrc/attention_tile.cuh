@@ -2,7 +2,8 @@
 // K2 csrc/mha_qkv_bwd.cu, K4 csrc/int8_attention.cu) and K3
 // (csrc/int8_matmul.cu): the mma.sync wrappers, fragment loads, and
 // cp.async copies that fill the two-stage tile rings the redesigned K1
-// and K4 stream keys through.
+// and K4 stream keys through; and the fp32 register micro-tiles of the
+// fp32 K1 and K2 (end of the file).
 //
 // Fragment layouts (PTX ISA): g = lane / 4, t = lane % 4.
 // m16n8k16 bf16: A a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..),
@@ -187,6 +188,178 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& allowed) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) allowed = bytes;
   return err;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 micro-tiles (the fp32 instances of K1 and K2: full fp32 FMAs on the
+// CUDA cores, no tensor cores, so no TF32)
+// ---------------------------------------------------------------------------
+//
+// A block of 16 TY threads covers 4 TY rows: thread (ty, tx) = (tid / 16,
+// tid % 16) owns rows 4 ty .. 4 ty + 3. Of a 64-column score tile (keys,
+// or in K2's dk/dv kernel queries) it owns columns tx + 16 j, j = 0..3;
+// of a [rows, HD] product, columns tx TN .. tx TN + TN - 1 (TN = HD / 16).
+// The 16 threads that share rows are one half of a warp, so row
+// reductions are __shfl_xor_sync over lanes 8, 4, 2, 1 and a tile of P
+// written by them needs only __syncwarp before they read it back.
+// Shared-memory rows are padded by 4 floats: the float4 reads of 16
+// consecutive rows (tx + 16 j) then fall on distinct bank groups, 8 rows
+// per wavefront, and the 4 rows of one thread are broadcast.
+
+constexpr int F32_TILE = 64;          // columns of a score tile
+constexpr int F32_PS = F32_TILE + 4;  // floats per row of a P / ds tile
+
+template <int N>
+__device__ __forceinline__ void ld_f32(float (&v)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st_f32(float* p, const float (&v)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (N == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+
+// acc[i][j] += sum_c a[i][c] b[16 j][c] over c < HD: the thread's 4 rows of
+// one operand (a: its first row) against its 4 columns of the other
+// (b: row tx of the tile), both row-major with `stride` floats a row.
+// Per 4 values of c: 8 float4 loads, 64 FMAs. Groups j >= nj (columns
+// past the ragged end of a tile) are skipped unless FULL.
+template <int HD, bool FULL>
+__device__ __forceinline__ void mt_dot(float (&acc)[4][4], const float* a,
+                                       const float* b, int stride, int nj) {
+  // unrolled by 4 steps, not HD / 4: on an H100 the whole-loop unroll was
+  // 5% slower at the ViT-B/16 shape and 27% at batch 1, with four times
+  // the code (tools/kernel_variants.py, PERF.md)
+#pragma unroll 4
+  for (int c = 0; c < HD; c += 4) {
+    float av[4][4], bv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ld_f32<4>(av[i], a + i * stride + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (FULL || j < nj) ld_f32<4>(bv[j], b + 16 * j * stride + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (FULL || j < nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][j] = fmaf(av[i][e], bv[j][e], acc[i][j]);
+  }
+}
+
+// acc[i][n] += sum_k w[i][k] x[k][n] over k < nk (a multiple of 16; 64 if
+// FULL): w the thread's 4 rows of a [rows][F32_TILE] tile (row stride
+// F32_PS), x its TN columns of a [F32_TILE][HD] tile (row stride HD + 4).
+// Per 4 values of k: 4 + 4 loads, 16 TN FMAs.
+template <int HD, bool FULL>
+__device__ __forceinline__ void mt_acc(float (&acc)[4][HD / 16],
+                                       const float* w, const float* x,
+                                       int nk) {
+  constexpr int TN = HD / 16;
+  auto four = [&](int k) {
+    float wv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ld_f32<4>(wv[i], w + i * F32_PS + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float xv[TN];
+      ld_f32<TN>(xv, x + (k + kk) * (HD + 4));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < TN; ++n)
+          acc[i][n] = fmaf(wv[i][kk], xv[n], acc[i][n]);
+    }
+  };
+  if constexpr (FULL) {
+#pragma unroll 4
+    for (int k = 0; k < F32_TILE; k += 4) four(k);
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < nk; k += 4) four(k);
+  }
+}
+
+// The 16 mask values of a thread's 4 rows x 4 columns (col0 + 16 j) of a
+// score tile, straight from L2: 16 loads against a tile's 2-4 products of
+// 4 x 4 x HD FMAs a thread, issued before them so that they are in flight
+// while those run; staging them would cost the shared memory of a third
+// ring operand. Entries past L read as 0. TRANSPOSED: the rows are keys
+// and the columns queries (K2's dk/dv kernel).
+template <bool TRANSPOSED>
+__device__ __forceinline__ void load_mask_f32(float (&mk)[4][4],
+                                              const float* mask, int L,
+                                              int row0, int col0) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = row0 + r, col = col0 + 16 * j;
+      const long long at = TRANSPOSED ? (long long)col * L + row
+                                      : (long long)row * L + col;
+      mk[r][j] = row < L && col < L ? __ldg(mask + at) : 0.f;
+    }
+}
+
+// The max (SUM false) or sum over the 16 lanes of a half warp.
+template <bool SUM>
+__device__ __forceinline__ float half_warp_reduce(float v) {
+#pragma unroll
+  for (int o = 8; o >= 1; o /= 2) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = SUM ? v + w : fmaxf(v, w);
+  }
+  return v;
+}
+
+// cp.async copy of rows [row0, row0 + ROWS) x [0, HD) of a strided fp32
+// slice into a ROWS x HD tile in shared memory, row stride HD + 4; rows
+// at or past `rows` are zero-filled. Every thread of the block issues its
+// share of the 16-byte copies; the caller commits.
+template <int ROWS, int HD>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long stride, int row0,
+                                              int rows, int threads) {
+  constexpr int CHUNKS = ROWS * HD / 4;
+  for (int i = threadIdx.x; i < CHUNKS; i += threads) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4, row = row0 + r;
+    const bool ok = row < rows;
+    cp_async16(dst + r * (HD + 4) + c, ok ? src + row * stride + c : src,
+               ok);
+  }
+}
+
+// Rows an fp32 block covers (16, 32 or 64): `rows`, halved while the
+// grid (row chunks x heads x batch) would leave SMs idle.
+inline int f32_fill_rows(int rows, int L, long long heads_x_batch, int sms) {
+  while (rows > 16 && (L + rows - 1) / rows * heads_x_batch < sms) rows /= 2;
+  return rows;
+}
+
+// The most rows a block may cover (16, 32 or 64) whose padding past L (a
+// ragged last chunk computes its padded rows) stays within waste_pct
+// percent of L.
+inline int f32_pad_rows(int L, int waste_pct) {
+  int rows = 64;
+  while (rows > 16 && (long long)(L + rows - 1) / rows * rows * 100 >
+                          (100LL + waste_pct) * L)
+    rows /= 2;
+  return rows;
 }
 
 }  // namespace attn_tile

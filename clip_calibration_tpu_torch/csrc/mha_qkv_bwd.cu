@@ -48,8 +48,21 @@
 //   re-pack the fp32 accumulator fragment as a bf16 A operand (rounding P
 //   and ds to bf16 exactly where the JAX kernel casts them) and load B with
 //   ldmatrix.trans, as K1's P v does.
-// - fp32: one thread per row, fp32 FMAs from shared-memory tiles, so fp32
-//   runs stay full fp32 (no TF32).
+// - fp32 (fp32 FMAs on the CUDA cores, no TF32): bound by operations at
+//   the vision shape, 159 us (10 B H L^2 d at 67 TFLOP/s). The same
+//   register micro-tiles as K1's fp32 instance (attention_tile.cuh): each
+//   thread holds 4 rows x 4 columns of the score-shaped products (q k^T,
+//   g v^T; in the dk/dv kernel k q^T, v g^T) and 4 rows x d / 16 columns
+//   of dq, or of dk and dv (32 accumulators at d 64, none spilled); P and
+//   ds reach the products that contract over keys or queries (ds k, P^T
+//   g, ds^T q) through shared tiles written and read by one half warp.
+//   The streamed tiles (K and V, or q and g) come through a two-stage
+//   cp.async ring; the mask and the statistics are read straight from L2.
+//   The dq kernel walks pass 1 from the last key tile to the first and
+//   begins pass 2 with tile 0's scores still in registers, so at L <= 64
+//   (the text towers) no tile is computed twice. Blocks cover 16, 32 or
+//   64 rows: the most whose padding past L stays within 10% of L, halved
+//   while the grid would leave SMs idle.
 //
 // Masks use finfo(float32).min, never -inf, as the towers build them, so a
 // fully masked row stays finite. Keys past L get no weight (s = -inf);
@@ -395,217 +408,343 @@ __global__ void __launch_bounds__(MMA_WARPS * 32)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA-core FMA kernels, one thread per row
+// fp32: register micro-tiles on the CUDA cores (attention_tile.cuh)
 // ---------------------------------------------------------------------------
 
-// shared memory at HD = 64: 45.8 KB a block, under the 48 KB of static
-// shared memory
-constexpr int BR = 64;  // rows a block owns, one thread each
-constexpr int BT = 16;  // rows of the streamed tile
+constexpr int F32_STAGES = 2;  // the ring: tile j + 1 copies while j runs
+
+template <int HD, int ROWS>
+struct BwdF32 {
+  static constexpr int THREADS = ROWS * 4;  // 16 threads per 4 rows
+  static constexpr int TN = HD / 16;        // output columns a thread
+  static constexpr int KS = HD + 4;         // floats per smem row
+  static constexpr int TILE = F32_TILE * KS;  // floats per streamed tile
+  static constexpr int OWN = ROWS * KS;       // floats per resident block
+  // two resident operands, the ring (two streamed operands per stage) and
+  // one (dq) or two (dk/dv) weight tiles; dq 96 KB, dk/dv 104 KB at ROWS
+  // 32 and HD 64: two blocks an SM
+  static constexpr int SMEM_DQ =
+      (2 * OWN + F32_STAGES * 2 * TILE + ROWS * F32_PS) * 4;
+  static constexpr int SMEM_DKDV =
+      (2 * OWN + F32_STAGES * 2 * TILE + 2 * ROWS * F32_PS) * 4;
+};
 
 template <int HD>
-__global__ void __launch_bounds__(BR)
+__device__ __forceinline__ void zero_acc(float (&acc)[4][HD / 16]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int n = 0; n < HD / 16; ++n) acc[r][n] = 0.f;
+}
+
+// dq: a block owns ROWS query rows of one head, q and g resident; K and V
+// tiles stream through the ring twice, the ring running across the
+// boundary of the passes. Pass 1 (the row statistics) walks the key tiles
+// last to first, so it ends on tile 0, whose scores and dp are still in
+// registers when the statistics are complete: pass 2 (ds and dq) takes
+// tile 0 from them and streams only tiles 1 .. n - 1 again. At L <= 64
+// (one tile: the text towers) nothing is streamed or recomputed twice.
+template <int HD, int ROWS>
+__global__ void __launch_bounds__(ROWS * 4)
     mha_qkv_bwd_dq_f32(const float* __restrict__ qkv,
                        const float* __restrict__ mask,
                        const float* __restrict__ grad,
                        float* __restrict__ dqkv, float* __restrict__ stats,
                        int L, int D, int H, float scale) {
-  __shared__ float qs[BR][HD + 1];  // +1: no bank conflicts on row access
-  __shared__ float gs[BR][HD + 1];
-  __shared__ float ks[BT][HD];
-  __shared__ float vs[BT][HD];
-  __shared__ float ms[BR][BT + 1];
+  using F = BwdF32<HD, ROWS>;
+  constexpr int TN = F::TN, KS = F::KS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* gs = qs + F::OWN;
+  float* ring = gs + F::OWN;
+  float* dss = ring + F32_STAGES * 2 * F::TILE;
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BR;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row = q0 + tid;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int row0 = q0 + 4 * ty;
+  const bool active = q0 + (tid / 32) * 8 < L;
   const long long stride = 3LL * D;
   const float* base = qkv + (long long)b * L * stride;
-  const float* qb = base + h * HD;
-  const float* kb = base + D + h * HD;
-  const float* vb = base + 2 * D + h * HD;
-  const float* gb = grad + (long long)b * L * D + h * HD;
+  const int ntiles = (L + F32_TILE - 1) / F32_TILE;
+  const int walk = 2 * ntiles - 1;
+  // the key tile of step i: n - 1 .. 0 (pass 1), then 1 .. n - 1 (pass 2)
+  auto key_tile = [&](int i) {
+    return i < ntiles ? ntiles - 1 - i : i - ntiles + 1;
+  };
 
-  for (int i = tid; i < BR * HD; i += BR) {
-    const int r = i / HD, c = i % HD, rr = q0 + r;
-    qs[r][c] = rr < L ? qb[rr * stride + c] : 0.f;
-    gs[r][c] = rr < L ? gb[(long long)rr * D + c] : 0.f;
+  auto issue = [&](int i) {
+    float* kt = ring + (i % F32_STAGES) * 2 * F::TILE;
+    const int k0 = key_tile(i) * F32_TILE;
+    load_tile_f32<F32_TILE, HD>(kt, base + D + h * HD, stride, k0, L,
+                                F::THREADS);
+    load_tile_f32<F32_TILE, HD>(kt + F::TILE, base + 2 * D + h * HD, stride,
+                                k0, L, F::THREADS);
+  };
+  load_tile_f32<ROWS, HD>(qs, base + h * HD, stride, q0, L, F::THREADS);
+  load_tile_f32<ROWS, HD>(gs, grad + (long long)b * L * D + h * HD, D, q0, L,
+                          F::THREADS);
+  issue(0);
+  cp_async_commit();
+
+  const float* qrow = qs + 4 * ty * KS;
+  const float* grow = gs + 4 * ty * KS;
+  float* dsrow = dss + 4 * ty * F32_PS;
+  float m[4], l[4], dsum[4], inv_l[4], delta[4], dq[4][TN];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = -FLT_MAX;
+    l[r] = dsum[r] = 0.f;
   }
+  zero_acc<HD>(dq);
 
-  auto stage = [&](int k0) {
-    __syncthreads();  // the previous tile is consumed (and qs, gs written)
-    for (int i = tid; i < BT * HD; i += BR) {
-      const int r = i / HD, c = i % HD, key = k0 + r;
-      ks[r][c] = key < L ? kb[key * stride + c] : 0.f;
-      vs[r][c] = key < L ? vb[key * stride + c] : 0.f;
-    }
-    for (int i = tid; i < BR * BT; i += BR) {
-      const int r = i / BT, c = i % BT, rr = q0 + r, key = k0 + c;
-      ms[r][c] = (rr < L && key < L) ? mask[(long long)rr * L + key] : 0.f;
-    }
+  for (int i = 0; i < walk; ++i) {
+    cp_async_wait<0>();
     __syncthreads();
-  };
-  // s[j] = (q k_j) scale + mask, dp[j] = g v_j over one staged key tile
-  auto scores = [&](float (&s)[BT], float (&dp)[BT], int k0) {
+    if (i + 1 < walk) issue(i + 1);
+    cp_async_commit();
+    if (!active) continue;
+    const int k0 = key_tile(i) * F32_TILE, nk = min(F32_TILE, L - k0);
+    const float* ks = ring + (i % F32_STAGES) * 2 * F::TILE;
+    const float* vs = ks + F::TILE;
+    float mk[4][4];
+    load_mask_f32<false>(mk, mask, L, row0, k0 + tx);
+
+    auto step = [&](auto full) {
+      constexpr bool FULL = decltype(full)::value;
+      const int nj = (nk + 15) / 16;
+      float s[4][4], dp[4][4];
 #pragma unroll
-    for (int j = 0; j < BT; ++j) {
-      float sd = 0.f, pd = 0.f;
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        sd = fmaf(qs[tid][c], ks[j][c], sd);
-        pd = fmaf(gs[tid][c], vs[j][c], pd);
+        for (int j = 0; j < 4; ++j) s[r][j] = dp[r][j] = 0.f;
+      mt_dot<HD, FULL>(s, qrow, ks + tx * KS, KS, nj);
+      mt_dot<HD, FULL>(dp, grow, vs + tx * KS, KS, nj);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)  // keys past L: s = -inf, P = 0
+          s[r][j] = FULL || tx + 16 * j < nk ? s[r][j] * scale + mk[r][j]
+                                             : -INFINITY;
+      if (i < ntiles) {  // pass 1: online max, sum and rowsum(dp o P)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float tmax = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tmax = fmaxf(tmax, s[r][j]);
+          const float m_new = fmaxf(m[r], half_warp_reduce<false>(tmax));
+          const float alpha = expf(m[r] - m_new);
+          m[r] = m_new;
+          float rsum = 0.f, rdot = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float p = expf(s[r][j] - m_new);
+            rsum += p;
+            rdot = fmaf(p, dp[r][j], rdot);
+          }
+          l[r] = l[r] * alpha + half_warp_reduce<true>(rsum);
+          dsum[r] = dsum[r] * alpha + half_warp_reduce<true>(rdot);
+        }
+        if (i < ntiles - 1) return;
+        // tile 0, the last of pass 1: the statistics are complete, and
+        // pass 2 begins with this tile's s and dp
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          inv_l[r] = 1.f / l[r];  // l >= 1: the max contributes exp(0)
+          delta[r] = dsum[r] * inv_l[r];
+        }
+        if (tx == 0) {
+          const long long bhl = (long long)gridDim.z * H * L;
+          float* st = stats + ((long long)b * H + h) * L;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (row0 + r < L) {
+              st[row0 + r] = m[r];
+              st[bhl + row0 + r] = inv_l[r];
+              st[2 * bhl + row0 + r] = delta[r];
+            }
+        }
       }
-      s[j] = k0 + j < L ? sd * scale + ms[tid][j] : -INFINITY;
-      dp[j] = pd;
-    }
-  };
-
-  float m = -FLT_MAX, l = 0.f, dsum = 0.f;
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    stage(k0);
-    float s[BT], dp[BT];
-    scores(s, dp, k0);
-    float tmax = -FLT_MAX;
+      // pass 2: ds = P o (dp - Delta), dq += ds k
 #pragma unroll
-    for (int j = 0; j < BT; ++j) tmax = fmaxf(tmax, s[j]);
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float rsum = 0.f, rdot = 0.f;
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int j = 0; j < BT; ++j) {
-      const float p = expf(s[j] - m_new);
-      rsum += p;
-      rdot = fmaf(p, dp[j], rdot);
-    }
-    l = l * alpha + rsum;
-    dsum = dsum * alpha + rdot;
-    m = m_new;
-  }
-  const float inv_l = 1.f / l;  // l >= 1
-  const float delta = dsum * inv_l;
-  if (row < L) {
-    const long long bhl = (long long)gridDim.z * H * L;
-    float* st = stats + ((long long)b * H + h) * L;
-    st[row] = m;
-    st[bhl + row] = inv_l;
-    st[2 * bhl + row] = delta;
+        for (int j = 0; j < 4; ++j)
+          if (FULL || j < nj)
+            dsrow[r * F32_PS + tx + 16 * j] =
+                expf(s[r][j] - m[r]) * inv_l[r] * (dp[r][j] - delta[r]);
+      __syncwarp();  // ds's rows come from this half warp alone
+      mt_acc<HD, FULL>(dq, dsrow, ks + tx * TN, nj * 16);
+      __syncwarp();  // ds is read before the next tile overwrites it
+    };
+    if (nk == F32_TILE)
+      step(std::true_type{});
+    else
+      step(std::false_type{});
   }
 
-  float acc[HD];
+  if (!active) return;
+  float* ob = dqkv + (long long)b * L * stride + h * HD + tx * TN;
 #pragma unroll
-  for (int c = 0; c < HD; ++c) acc[c] = 0.f;
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    stage(k0);
-    float s[BT], dp[BT];
-    scores(s, dp, k0);
+  for (int r = 0; r < 4; ++r) {
+    if (row0 + r >= L) continue;
+    float v[TN];
 #pragma unroll
-    for (int j = 0; j < BT; ++j) {
-      const float ds = expf(s[j] - m) * inv_l * (dp[j] - delta);
-#pragma unroll
-      for (int c = 0; c < HD; ++c) acc[c] = fmaf(ds, ks[j][c], acc[c]);
-    }
-  }
-
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < HD; ++c) qs[tid][c] = acc[c] * scale;
-  __syncthreads();
-  float* ob = dqkv + (long long)b * L * stride + h * HD;
-  for (int i = tid; i < BR * HD; i += BR) {
-    const int r = i / HD, c = i % HD, rr = q0 + r;
-    if (rr < L) ob[rr * stride + c] = qs[r][c];
+    for (int n = 0; n < TN; ++n) v[n] = dq[r][n] * scale;
+    st_f32<TN>(ob + (row0 + r) * stride, v);
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(BR)
+// dk/dv: a block owns ROWS key rows of one head, k and v resident; q and g
+// tiles stream through the ring. The score tiles are transposed (rows
+// keys, columns queries): s^T = k q^T, dp^T = v g^T, then P^T and ds^T
+// from the stored row statistics, dv += P^T g and dk += ds^T q.
+template <int HD, int ROWS>
+__global__ void __launch_bounds__(ROWS * 4)
     mha_qkv_bwd_dkdv_f32(const float* __restrict__ qkv,
                          const float* __restrict__ mask,
                          const float* __restrict__ grad,
                          float* __restrict__ dqkv,
-                         const float* __restrict__ stats, int L, int D, int H,
-                         float scale) {
-  __shared__ float kvs[2][BR][HD + 1];  // this block's k and v rows; then
-                                        // its dk and dv on the way out
-  __shared__ float qs[BT][HD];
-  __shared__ float gs[BT][HD];
-  __shared__ float mt[BT][BR + 1];  // [query][key]
-  __shared__ float sm[BT], sil[BT], sdl[BT];
+                         const float* __restrict__ stats, int L, int D,
+                         int H, float scale) {
+  using F = BwdF32<HD, ROWS>;
+  constexpr int TN = F::TN, KS = F::KS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* kso = reinterpret_cast<float*>(smem);
+  float* vso = kso + F::OWN;
+  float* ring = vso + F::OWN;
+  float* pts = ring + F32_STAGES * 2 * F::TILE;
+  float* dts = pts + ROWS * F32_PS;
 
-  const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * BR;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int key0 = k0 + 4 * ty;  // this thread's keys: key0 .. key0 + 3
+  const bool active = k0 + (tid / 32) * 8 < L;
   const long long stride = 3LL * D;
   const float* base = qkv + (long long)b * L * stride;
-  const float* qb = base + h * HD;
   const float* gb = grad + (long long)b * L * D + h * HD;
   const long long bhl = (long long)gridDim.z * H * L;
   const float* st = stats + ((long long)b * H + h) * L;
+  const int ntiles = (L + F32_TILE - 1) / F32_TILE;
 
-  for (int i = tid; i < BR * HD; i += BR) {
-    const int r = i / HD, c = i % HD, key = k0 + r;
-    kvs[0][r][c] = key < L ? base[key * stride + D + h * HD + c] : 0.f;
-    kvs[1][r][c] = key < L ? base[key * stride + 2 * D + h * HD + c] : 0.f;
-  }
+  auto issue = [&](int i) {
+    float* qt = ring + (i % F32_STAGES) * 2 * F::TILE;
+    load_tile_f32<F32_TILE, HD>(qt, base + h * HD, stride, i * F32_TILE, L,
+                                F::THREADS);
+    load_tile_f32<F32_TILE, HD>(qt + F::TILE, gb, D, i * F32_TILE, L,
+                                F::THREADS);
+  };
+  load_tile_f32<ROWS, HD>(kso, base + D + h * HD, stride, k0, L, F::THREADS);
+  load_tile_f32<ROWS, HD>(vso, base + 2 * D + h * HD, stride, k0, L,
+                          F::THREADS);
+  issue(0);
+  cp_async_commit();
 
-  float dk[HD], dv[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) dk[c] = dv[c] = 0.f;
+  const float* krow = kso + 4 * ty * KS;
+  const float* vrow = vso + 4 * ty * KS;
+  float* prow = pts + 4 * ty * F32_PS;
+  float* dsrow = dts + 4 * ty * F32_PS;
+  float dk[4][TN], dv[4][TN];
+  zero_acc<HD>(dk);
+  zero_acc<HD>(dv);
 
-  for (int q0 = 0; q0 < L; q0 += BT) {
-    __syncthreads();  // the previous tile is consumed (and kvs written)
-    for (int i = tid; i < BT * HD; i += BR) {
-      const int r = i / HD, c = i % HD, row = q0 + r;
-      qs[r][c] = row < L ? qb[row * stride + c] : 0.f;
-      gs[r][c] = row < L ? gb[(long long)row * D + c] : 0.f;
-    }
-    for (int i = tid; i < BT * BR; i += BR) {
-      const int r = i / BR, c = i % BR, row = q0 + r, key = k0 + c;
-      mt[r][c] = (row < L && key < L) ? mask[(long long)row * L + key] : 0.f;
-    }
-    if (tid < BT) {
-      const int row = q0 + tid;
-      sm[tid] = row < L ? st[row] : 0.f;
-      sil[tid] = row < L ? st[bhl + row] : 0.f;
-      sdl[tid] = row < L ? st[2 * bhl + row] : 0.f;
-    }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<0>();
     __syncthreads();
-
-    const int nq = min(BT, L - q0);
-    for (int i = 0; i < nq; ++i) {
-      float sd = 0.f, pd = 0.f;
+    if (i + 1 < ntiles) issue(i + 1);
+    cp_async_commit();
+    if (!active) continue;
+    const int q0 = i * F32_TILE, nq = min(F32_TILE, L - q0);
+    const float* qs = ring + (i % F32_STAGES) * 2 * F::TILE;
+    const float* gs = qs + F::TILE;
+    float mk[4][4], sm[4], sil[4], sdl[4];
+    load_mask_f32<true>(mk, mask, L, key0, q0 + tx);
 #pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        sd = fmaf(kvs[0][tid][c], qs[i][c], sd);
-        pd = fmaf(kvs[1][tid][c], gs[i][c], pd);
-      }
-      const float p = expf(sd * scale + mt[i][tid] - sm[i]) * sil[i];
-      const float ds = p * (pd - sdl[i]);
-#pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        dv[c] = fmaf(p, gs[i][c], dv[c]);
-        dk[c] = fmaf(ds, qs[i][c], dk[c]);
-      }
+    for (int j = 0; j < 4; ++j) {  // the statistics of query q0 + tx + 16 j
+      const int q = q0 + tx + 16 * j;
+      sm[j] = q < L ? __ldg(st + q) : 0.f;
+      sil[j] = q < L ? __ldg(st + bhl + q) : 0.f;
+      sdl[j] = q < L ? __ldg(st + 2 * bhl + q) : 0.f;
     }
+
+    auto step = [&](auto full) {
+      constexpr bool FULL = decltype(full)::value;
+      const int nj = (nq + 15) / 16;
+      float p[4][4], ds[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[r][j] = ds[r][j] = 0.f;
+      mt_dot<HD, FULL>(p, krow, qs + tx * KS, KS, nj);   // s^T
+      mt_dot<HD, FULL>(ds, vrow, gs + tx * KS, KS, nj);  // dp^T
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (!FULL && j >= nj) continue;
+          // queries past L contribute nothing
+          const float pv = FULL || tx + 16 * j < nq
+                               ? expf(p[r][j] * scale + mk[r][j] - sm[j]) *
+                                     sil[j]
+                               : 0.f;
+          prow[r * F32_PS + tx + 16 * j] = pv;
+          dsrow[r * F32_PS + tx + 16 * j] = pv * (ds[r][j] - sdl[j]);
+        }
+      __syncwarp();  // P^T's and ds^T's rows come from this half warp
+      mt_acc<HD, FULL>(dv, prow, gs + tx * TN, nj * 16);   // P^T g
+      mt_acc<HD, FULL>(dk, dsrow, qs + tx * TN, nj * 16);  // ds^T q
+      __syncwarp();  // both are read before the next tile overwrites them
+    };
+    if (nq == F32_TILE)
+      step(std::true_type{});
+    else
+      step(std::false_type{});
   }
 
-  __syncthreads();
+  if (!active) return;
+  float* kout = dqkv + (long long)b * L * stride + D + h * HD + tx * TN;
+  float* vout = kout + D;
 #pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    kvs[0][tid][c] = dk[c] * scale;
-    kvs[1][tid][c] = dv[c];
-  }
-  __syncthreads();
-  float* ob = dqkv + (long long)b * L * stride + h * HD;
-  for (int i = tid; i < BR * HD; i += BR) {
-    const int r = i / HD, c = i % HD, key = k0 + r;
-    if (key < L) {
-      ob[key * stride + D + c] = kvs[0][r][c];
-      ob[key * stride + 2 * D + c] = kvs[1][r][c];
+  for (int r = 0; r < 4; ++r) {
+    if (key0 + r >= L) continue;
+    float vk[TN], vv[TN];
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {
+      vk[n] = dk[r][n] * scale;
+      vv[n] = dv[r][n];
     }
+    st_f32<TN>(kout + (key0 + r) * stride, vk);
+    st_f32<TN>(vout + (key0 + r) * stride, vv);
   }
 }
+
+template <int HD, int ROWS>
+cudaError_t launch_f32(const float* qkv, const float* mask, const float* grad,
+                       float* dqkv, float* stats, int B, int L, int D, int H,
+                       float scale, cudaStream_t stream) {
+  using F = BwdF32<HD, ROWS>;
+  static size_t allowed_dq = 0, allowed_dkdv = 0;
+  auto dq = mha_qkv_bwd_dq_f32<HD, ROWS>;
+  auto dkdv = mha_qkv_bwd_dkdv_f32<HD, ROWS>;
+  cudaError_t err = allow_smem(dq, F::SMEM_DQ, allowed_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(dkdv, F::SMEM_DKDV, allowed_dkdv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + ROWS - 1) / ROWS, H, B);
+  dq<<<grid, F::THREADS, F::SMEM_DQ, stream>>>(qkv, mask, grad, dqkv, stats,
+                                                L, D, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv<<<grid, F::THREADS, F::SMEM_DKDV, stream>>>(qkv, mask, grad, dqkv,
+                                                    stats, L, D, H, scale);
+  return cudaGetLastError();
+}
+
+// blocks that fill the card: 132 SMs
+constexpr int SMS = 132;
+// the padded rows a block size may add, in percent of L: at 64 rows the
+// kernels' registers and shared memory allow one block of 8 warps an SM,
+// as at 32, so padding only costs (tools/kernel_variants.py `rows_64`)
+constexpr int F32_WASTE_PCT = 10;
 
 template <int HD>
 cudaError_t launch(const void* qkv, const float* mask, const void* grad,
@@ -623,20 +762,23 @@ cudaError_t launch(const void* qkv, const float* mask, const void* grad,
     mha_qkv_bwd_dkdv_bf16<HD><<<grid, MMA_WARPS * 32, 0, stream>>>(
         static_cast<const T*>(qkv), mask, static_cast<const T*>(grad),
         static_cast<T*>(dqkv), stats, L, D, H, scale);
-  } else {
-    const dim3 grid((L + BR - 1) / BR, H, B);
-    mha_qkv_bwd_dq_f32<HD><<<grid, BR, 0, stream>>>(
-        static_cast<const float*>(qkv), mask,
-        static_cast<const float*>(grad), static_cast<float*>(dqkv), stats, L,
-        D, H, scale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    mha_qkv_bwd_dkdv_f32<HD><<<grid, BR, 0, stream>>>(
-        static_cast<const float*>(qkv), mask,
-        static_cast<const float*>(grad), static_cast<float*>(dqkv), stats, L,
-        D, H, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  const float* q = static_cast<const float*>(qkv);
+  const float* g = static_cast<const float*>(grad);
+  float* dq = static_cast<float*>(dqkv);
+  switch (f32_fill_rows(f32_pad_rows(L, F32_WASTE_PCT), L, (long long)H * B,
+                        SMS)) {
+    case 64:
+      return launch_f32<HD, 64>(q, mask, g, dq, stats, B, L, D, H, scale,
+                                stream);
+    case 32:
+      return launch_f32<HD, 32>(q, mask, g, dq, stats, B, L, D, H, scale,
+                                stream);
+    default:
+      return launch_f32<HD, 16>(q, mask, g, dq, stats, B, L, D, H, scale,
+                                stream);
+  }
 }
 
 }  // namespace

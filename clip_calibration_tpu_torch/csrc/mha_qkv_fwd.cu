@@ -47,8 +47,32 @@
 //   The [L, L] scores never leave the SM and the output is written once,
 //   straight into its head's columns. exp is __expf (ex2.approx of
 //   x log2 e), whose error is far below bf16's.
-// fp32: one thread per query row, fp32 FMAs from shared-memory tiles
-// (broadcast reads), so fp32 runs stay full fp32 (no TF32); unchanged.
+//
+// fp32 (the golden-parity precision; fp32 FMAs on the CUDA cores, no tensor
+// cores, so no TF32): bound by operations, 63.5 us at the vision shape
+// (4 B H L^2 d = 4.25 GFLOP at 67 TFLOP/s) against 24.5 us of bytes.
+// What the design does about it (attention_tile.cuh, fp32 micro-tiles):
+// - Register micro-tiles, as a SIMT GEMM: a block of 16 ROWS / 4 threads
+//   owns ROWS (16, 32 or 64) query rows of one head; each thread holds 4
+//   rows x 4 keys of S and 4 rows x d / 16 columns of O, so one step of 4
+//   along d is 8 float4 shared-memory loads for 64 FMAs. q, K and V stay
+//   row-major in shared memory with rows padded by 4 floats, so the
+//   float4 reads of 16 rows fall on distinct banks.
+// - Online softmax across the 16 threads of a half warp that share rows
+//   (__shfl_xor_sync); P goes through a [ROWS, 64] shared tile into the
+//   P V micro-tiles, written and read by the same half warp (__syncwarp).
+// - K and V arrive in 64-key tiles through a two-stage cp.async ring (16-
+//   byte copies), one barrier a tile. The mask is read straight from L2
+//   (16 values a thread a tile, issued before q k^T): against the tile's
+//   128 d FMAs a thread, staging it would save little and cost the
+//   shared memory of a third ring operand.
+// - The grid fills 132 SMs: ROWS is 64, halved while chunks x H x B is
+//   under the SM count (16 at batch 1: 156 blocks). Two blocks of 8 warps
+//   share an SM; at L 208 the last chunk pads 48 rows, whose warps skip
+//   the products and only keep the ring going. A ragged last key tile
+//   skips its 16-key groups past L.
+// - expf, as the plain version's softmax; error well inside the 1e-4
+//   tolerance (measured: about 1e-6 absolute at the launched shapes).
 //
 // Masks use finfo(float32).min, never -inf, as the towers build them. The
 // running max starts at -FLT_MAX, so a tile whose keys are all masked for
@@ -307,97 +331,135 @@ __global__ void __launch_bounds__(NW * 32)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA-core FMA kernel
+// fp32: register micro-tiles on the CUDA cores (attention_tile.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 64;  // query rows per block, one thread each
-constexpr int BK = 32;  // keys per shared-memory tile
+template <int HD, int ROWS>
+struct FwdF32 {
+  static constexpr int THREADS = ROWS * 4;  // 16 threads per 4 rows
+  static constexpr int TN = HD / 16;        // output columns a thread
+  static constexpr int KS = HD + 4;         // floats per K/V/q smem row
+  static constexpr int KV = F32_TILE * KS;  // floats per K (or V) tile
+  // the ring (K and V per stage), q, and the P tile
+  static constexpr int SMEM =
+      (STAGES * 2 * KV + ROWS * KS + ROWS * F32_PS) * 4;
+};
 
-template <int HD>
-__global__ void __launch_bounds__(BQ)
+// two blocks an SM at every ROWS (shared memory: at most 104 KB a block)
+template <int HD, int ROWS>
+__global__ void __launch_bounds__(ROWS * 4, 2)
     mha_qkv_fwd_f32(const float* __restrict__ qkv,
                     const float* __restrict__ mask, float* __restrict__ out,
                     int L, int D, float scale) {
-  __shared__ float qs[BQ][HD + 1];  // Q tile in, output tile out (+1: no
-                                    // bank conflicts on per-row access)
-  __shared__ float ks[BK][HD];
-  __shared__ float vs[BK][HD];
-  __shared__ float ms[BQ][BK + 1];
+  using F = FwdF32<HD, ROWS>;
+  constexpr int TN = F::TN, KS = F::KS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* qs = ring + STAGES * 2 * F::KV;
+  float* ps = qs + ROWS * KS;
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int row0 = q0 + 4 * ty;  // this thread's rows: row0 .. row0 + 3
+  // a warp's 8 rows; a warp wholly past L only keeps the ring going
+  const bool active = q0 + (tid / 32) * 8 < L;
   const long long stride = 3LL * D;
   const float* base = qkv + (long long)b * L * stride;
-  const float* qb = base + h * HD;
-  const float* kb = base + D + h * HD;
-  const float* vb = base + 2 * D + h * HD;
+  const int ntiles = (L + F32_TILE - 1) / F32_TILE;
 
-  for (int i = tid; i < BQ * HD; i += BQ) {
-    const int r = i / HD, c = i % HD, row = q0 + r;
-    qs[r][c] = row < L ? qb[row * stride + c] * scale : 0.f;
+  auto issue = [&](int i) {
+    float* kt = ring + (i % STAGES) * 2 * F::KV;
+    load_tile_f32<F32_TILE, HD>(kt, base + D + h * HD, stride,
+                                i * F32_TILE, L, F::THREADS);
+    load_tile_f32<F32_TILE, HD>(kt + F::KV, base + 2 * D + h * HD, stride,
+                                i * F32_TILE, L, F::THREADS);
+  };
+  load_tile_f32<ROWS, HD>(qs, base + h * HD, stride, q0, L, F::THREADS);
+  issue(0);
+  cp_async_commit();
+
+  float o[4][TN], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < TN; ++n) o[i][n] = 0.f;
+    m[i] = -FLT_MAX;
+    l[i] = 0.f;
   }
-  __syncthreads();
+  const float* qrow = qs + 4 * ty * KS;
+  float* prow = ps + 4 * ty * F32_PS;
 
-  float q[HD], acc[HD];
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<0>();  // this thread's copies of tile i landed
+    __syncthreads();     // everyone's; and tile i - 1 is consumed
+    if (i + 1 < ntiles) issue(i + 1);  // into tile i - 1's stage
+    cp_async_commit();
+    if (!active) continue;
+    const int k0 = i * F32_TILE, nk = min(F32_TILE, L - k0);
+    const float* ks = ring + (i % STAGES) * 2 * F::KV;
+    const float* vs = ks + F::KV;
+    float mk[4][4];
+    load_mask_f32<false>(mk, mask, L, row0, k0 + tx);
+
+    // a full tile compiles without the 16-key guards; the ragged last
+    // one skips the 16-key groups past L
+    auto step = [&](auto full) {
+      constexpr bool FULL = decltype(full)::value;
+      const int nj = (nk + 15) / 16;
+      float s[4][4];
 #pragma unroll
-  for (int c = 0; c < HD; ++c) {
-    q[c] = qs[tid][c];
-    acc[c] = 0.f;
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
+      mt_dot<HD, FULL>(s, qrow, ks + tx * KS, KS, nj);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // keys past L get no weight
+          s[r][j] = FULL || tx + 16 * j < nk ? s[r][j] * scale + mk[r][j]
+                                             : -INFINITY;
+          tmax = fmaxf(tmax, s[r][j]);
+        }
+        // m stays finite (>= -FLT_MAX): no -inf - -inf
+        const float m_new = fmaxf(m[r], half_warp_reduce<false>(tmax));
+        const float alpha = expf(m[r] - m_new);
+        m[r] = m_new;
+        float rsum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[r][j] = expf(s[r][j] - m_new);
+          rsum += s[r][j];
+        }
+        l[r] = l[r] * alpha + half_warp_reduce<true>(rsum);
+#pragma unroll
+        for (int n = 0; n < TN; ++n) o[r][n] *= alpha;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (FULL || j < nj) prow[r * F32_PS + tx + 16 * j] = s[r][j];
+      }
+      __syncwarp();  // P's rows come from this half warp alone
+      mt_acc<HD, FULL>(o, prow, vs + tx * TN, nj * 16);
+      __syncwarp();  // P is read before the next tile overwrites it
+    };
+    if (nk == F32_TILE)
+      step(std::true_type{});
+    else
+      step(std::false_type{});
   }
-  float m = -FLT_MAX, l = 0.f;
 
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < BK * HD; i += BQ) {
-      const int r = i / HD, c = i % HD, key = k0 + r;
-      const bool ok = key < L;
-      ks[r][c] = ok ? kb[key * stride + c] : 0.f;
-      vs[r][c] = ok ? vb[key * stride + c] : 0.f;
-    }
-    for (int i = tid; i < BQ * BK; i += BQ) {
-      const int r = i / BK, c = i % BK, row = q0 + r, key = k0 + c;
-      ms[r][c] = (row < L && key < L) ? mask[(long long)row * L + key] : 0.f;
-    }
-    __syncthreads();
-
-    const int nk = min(BK, L - k0);
-    float s[BK];
-    float tile_max = -FLT_MAX;
+  if (!active) return;
+  float* ob = out + (long long)b * L * D + h * HD + tx * TN;
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float dot = 0.f;
+  for (int r = 0; r < 4; ++r) {
+    if (row0 + r >= L) continue;
+    // l >= 1: the running max itself contributes exp(0)
+    const float inv = 1.f / l[r];
+    float v[TN];
 #pragma unroll
-      for (int c = 0; c < HD; ++c) dot = fmaf(q[c], ks[j][c], dot);
-      s[j] = dot + ms[tid][j];
-      if (j < nk) tile_max = fmaxf(tile_max, s[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = j < nk ? expf(s[j] - m_new) : 0.f;
-      l += p;
-#pragma unroll
-      for (int c = 0; c < HD; ++c) acc[c] = fmaf(p, vs[j][c], acc[c]);
-    }
-    m = m_new;
-  }
-
-  // l >= 1: the running max itself contributes exp(0)
-  const float inv = 1.f / l;
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < HD; ++c) qs[tid][c] = acc[c] * inv;
-  __syncthreads();
-  float* ob = out + (long long)b * L * D + h * HD;
-  for (int i = tid; i < BQ * HD; i += BQ) {
-    const int r = i / HD, c = i % HD, row = q0 + r;
-    if (row < L) ob[(long long)row * D + c] = qs[r][c];
+    for (int n = 0; n < TN; ++n) v[n] = o[r][n] * inv;
+    st_f32<TN>(ob + (long long)(row0 + r) * D, v);
   }
 }
 
@@ -450,6 +512,22 @@ cudaError_t launch_bf16(const void* qkv, const float* mask, void* out, int B,
                                                    scale, stream);
 }
 
+template <int HD, int ROWS>
+cudaError_t launch_f32(const void* qkv, const float* mask, void* out, int B,
+                       int L, int D, int H, float scale,
+                       cudaStream_t stream) {
+  using F = FwdF32<HD, ROWS>;
+  static size_t allowed = 0;
+  auto kernel = mha_qkv_fwd_f32<HD, ROWS>;
+  const cudaError_t err = allow_smem(kernel, F::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + ROWS - 1) / ROWS, H, B);
+  kernel<<<grid, F::THREADS, F::SMEM, stream>>>(
+      static_cast<const float*>(qkv), mask, static_cast<float*>(out), L, D,
+      scale);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch(const void* qkv, const float* mask, void* out, int B,
                    int L, int D, int H, int dtype, cudaStream_t stream) {
@@ -471,11 +549,17 @@ cudaError_t launch(const void* qkv, const float* mask, void* out, int B,
         return launch_bf16<HD, 1>(qkv, mask, out, B, L, D, H, scale, stream);
     }
   }
-  const dim3 grid((L + BQ - 1) / BQ, H, B);
-  mha_qkv_fwd_f32<HD><<<grid, BQ, 0, stream>>>(
-      static_cast<const float*>(qkv), mask, static_cast<float*>(out), L, D,
-      scale);
-  return cudaGetLastError();
+  // 64 rows whatever their padding: two 8-warp blocks an SM (at 128
+  // registers) outrun 32-row blocks at every measured shape, the padded
+  // warps idling (tools/kernel_variants.py `rows_pad_10`, PERF.md)
+  switch (f32_fill_rows(64, L, (long long)H * B, SMS)) {
+    case 64:
+      return launch_f32<HD, 64>(qkv, mask, out, B, L, D, H, scale, stream);
+    case 32:
+      return launch_f32<HD, 32>(qkv, mask, out, B, L, D, H, scale, stream);
+    default:
+      return launch_f32<HD, 16>(qkv, mask, out, B, L, D, H, scale, stream);
+  }
 }
 
 }  // namespace

@@ -15,6 +15,7 @@ import ctypes
 import glob
 import os
 import os.path as osp
+import re
 import shutil
 import subprocess
 import time
@@ -57,6 +58,45 @@ def log_path(name: str) -> str:
     """The compiler's output of the last build (ptxas register and
     shared-memory counts included)."""
     return osp.join(BUILD_DIR, f"lib{name}.log")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``..15mha_qkv_fwd_f32ILi64ELi32EE..`` -> ``mha_qkv_fwd_f32<64, 32>``
+    (the kernel and its integer or bool template arguments)."""
+    m = re.search(r"(?<=\d)((?:mha|int8)_\w*?)(?:I((?:L[a-z]+\d+E)+)E|E)",
+                  mangled)
+    if m is None:
+        return mangled
+    if m.group(2) is None:
+        return m.group(1)
+    return f"{m.group(1)}<{', '.join(re.findall(r'(\d+)E', m.group(2)))}>"
+
+
+def ptxas_report(name: str) -> dict:
+    """Per kernel instance of the last build of ``name``: registers and
+    bytes spilled (stores + loads), from ptxas's ``-v`` lines in the
+    build log."""
+    out, fn = {}, None
+    for line in open(log_path(name)):
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = _kernel_name(m.group(1))
+            out.setdefault(fn, {"registers": None, "spill_bytes": 0})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = _kernel_name(m.group(1))
+            out.setdefault(fn, {"registers": None, "spill_bytes": 0})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def _stale(name: str) -> bool:

@@ -119,6 +119,28 @@ def setup_cfg(args):
     return cfg
 
 
+#: TPU.USE_PALLAS values the port takes: the JAX CLI maps the same three
+#: (reference train.py:130-133) to its attention backends
+USE_PALLAS_VALUES = ("auto", "always", "never")
+
+
+def check_use_pallas(value, device_type: str) -> None:
+    """``TPU.USE_PALLAS`` on the port: ``auto`` and ``always`` run the
+    attention kernels K1 and K2 (``ops/mha_qkv.py``). ``never`` asks for a
+    second attention path, which the port has only on the CPU (there the
+    kernels' wrappers run their plain PyTorch versions); on the card it
+    raises. Any other value raises, as the JAX CLI's lookup does."""
+    if value not in USE_PALLAS_VALUES:
+        raise ValueError(f"TPU.USE_PALLAS must be one of "
+                         f"{', '.join(USE_PALLAS_VALUES)}; got {value!r}")
+    if value == "never" and device_type != "cpu":
+        raise ValueError(
+            "TPU.USE_PALLAS never: the port has no attention path on the "
+            "card other than its kernels K1 and K2; their plain PyTorch "
+            "versions serve only CPU tensors (--device cpu). Use auto or "
+            "always on the card")
+
+
 def main(args):
     device = resolve_device(args.device)
     # fp32 runs must be full fp32 on the card: the golden parity with the
@@ -128,6 +150,7 @@ def main(args):
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = setup_cfg(args)
+    check_use_pallas(cfg.TPU.USE_PALLAS, device.type)
     if cfg.TPU.DISTRIBUTED:
         raise NotImplementedError(
             "multi-process runs are not ported to the torch package yet")

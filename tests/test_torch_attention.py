@@ -178,3 +178,41 @@ def test_layer_norm_and_quick_gelu_match_jax():
         TA.quick_gelu(torch.from_numpy(x)).numpy(),
         np.asarray(A.quick_gelu(jnp.asarray(x))), rtol=1e-6, atol=1e-6)
     assert jax.default_backend() == "cpu"
+
+
+# fp32 edge cases the CUDA kernels must keep (their plain versions stand
+# for them here): (L, head dim, mask). "fullrow": the towers' pad mask
+# (keys from 50 masked, padded rows pinned to key 0) with the last row
+# and the keys 16..31 also set to finfo(float32).min, so one row is masked
+# everywhere and one 16-key block for every row.
+FP32_EDGES = [(37, 64, "causal"), (64, 64, "fullrow"), (48, 16, "pad"),
+              (40, 32, "causal"), (77, 16, "fullrow")]
+
+
+def _edge_mask(L, kind):
+    if kind != "fullrow":
+        m = _mask(L, kind)
+        if kind == "pad" and L <= 50:
+            m = np.zeros((L, L), np.float32)
+            m[:, L - 5:] = NEG
+            m[L - 5:, :] = NEG
+            m[L - 5:, 0] = 0.0
+        return m
+    m = _mask(L, "pad")
+    m[L - 1, :] = NEG
+    m[:, 16:32] = NEG
+    return m
+
+
+@pytest.mark.parametrize("L,d,kind", FP32_EDGES,
+                         ids=[f"{L}-d{d}-{k}" for L, d, k in FP32_EDGES])
+def test_fp32_edges_match_jax_kernel(L, d, kind):
+    """fp32 forward at a ragged L (not a multiple of 16), a fully masked
+    row and key block, and head dims 16 and 32: the port (plain version on
+    CPU tensors) against the interpret-mode Pallas kernel."""
+    B, H = 2, 4
+    qkv, mask = _qkv(8, B, L, H * d), _edge_mask(L, kind)
+    got = mha_qkv(torch.from_numpy(qkv), torch.from_numpy(mask), H)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), _jax_kernel(qkv, mask, H),
+                               rtol=2e-5, atol=2e-5)

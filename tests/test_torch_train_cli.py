@@ -105,3 +105,45 @@ def test_scaling_pipeline(workdir):
         log = open(osp.join("output/test_new/seed1", log_name)).read()
         assert "=> result" in log
         assert re.search(r"\* ece: (\d+\.\d+)%", log)
+
+
+@pytest.mark.parametrize("value", ["auto", "always", "never"])
+def test_use_pallas_values_run_on_cpu(workdir, value):
+    """TPU.USE_PALLAS on --device cpu: auto and always run the kernels'
+    wrappers (their plain versions on CPU tensors), and never is accepted
+    there, since the plain versions are the second attention path."""
+    out = f"output/use_pallas_{value}/seed1"
+    _run(["--root", "data", "--trainer", "ZeroshotCLIP",
+          "--dataset-config-file", DATASET, "--backbone", "ViT-Test",
+          "--output-dir", out, "DATASET.SUBSAMPLE_CLASSES", "base",
+          "TPU.USE_PALLAS", value] + SHARED)
+    assert "=> result" in open(osp.join(out, "log.txt")).read()
+
+
+def test_use_pallas_rule():
+    """never raises on the card (no second attention path there), any
+    value outside auto | always | never raises, naming the allowed ones."""
+    from clip_calibration_tpu_torch.train import check_use_pallas
+    for value in ("auto", "always"):
+        check_use_pallas(value, "cuda")
+        check_use_pallas(value, "cpu")
+    check_use_pallas("never", "cpu")
+    with pytest.raises(ValueError, match="CPU tensors"):
+        check_use_pallas("never", "cuda")
+    for device_type in ("cuda", "cpu"):
+        with pytest.raises(ValueError, match="auto, always, never"):
+            check_use_pallas("nevr", device_type)
+
+
+def test_unknown_use_pallas_raises_before_any_trainer(workdir, monkeypatch):
+    from clip_calibration_tpu_torch import train
+
+    def no_trainer(*args, **kwargs):
+        raise AssertionError("a trainer was built")
+
+    monkeypatch.setattr(train, "build_trainer", no_trainer)
+    with pytest.raises(ValueError, match="TPU.USE_PALLAS"):
+        _run(["--root", "data", "--trainer", "ZeroshotCLIP",
+              "--dataset-config-file", DATASET, "--backbone", "ViT-Test",
+              "--output-dir", "output/use_pallas_bad/seed1",
+              "TPU.USE_PALLAS", "sometimes"] + SHARED)

@@ -572,3 +572,43 @@ def test_tempscaling_cache_bypassed_on_shuffled_loader():
              "impath": ["a", "b"]}
     cos, labels = ts._cached_cos(batch)
     assert tuple(cos.shape) == (2, 3) and ts._cos_cache == {}
+
+
+# fp32 edge cases the CUDA kernels must keep (tests/test_torch_attention.py
+# holds the forward at the same cases): a ragged L, a fully masked row and
+# 16-key block (finfo(float32).min), head dims 16 and 32
+FP32_EDGES = [(37, 64, "causal", None), (64, 64, "fullrow", 50),
+              (48, 16, "pad", 43), (40, 32, "causal", None),
+              (77, 16, "fullrow", 70)]
+
+
+@pytest.mark.parametrize("L,d,kind,real", FP32_EDGES,
+                         ids=[f"{L}-d{d}-{k}" for L, d, k, _ in FP32_EDGES])
+def test_fp32_edges_gradient_matches_jax(L, d, kind, real):
+    """K2's plain version against the interpret-mode Pallas backward, and
+    the autograd Function's gradient against jax.grad through the Pallas
+    kernel, in fp32 at the edge cases."""
+    B, H = 2, 4
+    D = H * d
+    qkv, g = _inputs(9, B, L, D)
+    if kind == "fullrow":
+        mask = _mask(L, "pad", real)
+        mask[L - 1, :] = NEG
+        mask[:, 16:32] = NEG
+    else:
+        mask = _mask(L, kind, real)
+    want, _ = PA._bwd(H, True, (jnp.asarray(qkv), jnp.asarray(mask)),
+                      jnp.asarray(g))
+    got = mha_qkv_bwd(_t(qkv), _t(mask), _t(g), H)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+    def jax_loss(x):
+        return jnp.sum(PA.pallas_mha_qkv(x, jnp.asarray(mask), H, True)
+                       * jnp.asarray(g))
+
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(qkv)))
+    x = _t(qkv).requires_grad_()
+    (mha_qkv(x, _t(mask), H) * _t(g)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), want, rtol=RTOL, atol=ATOL)
