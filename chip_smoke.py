@@ -10,7 +10,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    (one nvcc per source) into ``build/``; per kernel instance its
    registers and spilled bytes (ptxas), and the count of tensor-core
    products (``HMMA``) in the fp32 instances' SASS (``cuobjdump``). Fails
-   if an fp32 instance spills or holds an ``HMMA``.
+   if an fp32 instance, or any instance of K2 or K3, spills, or an fp32
+   instance holds an ``HMMA``.
 3. ``main_path``: the port's CLI at full ViT-B/16 width and depth, bf16, on
    the seeded random init (no accuracy claim): ZeroshotCLIP on the base
    classes -> CoOp eval-only on the base classes -> CoOp on the new classes
@@ -25,7 +26,8 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    through the backward kernel K2 (12 launches a step). The CoOp run
    traces its first 5 steps (``TPU.PROFILE_DIR``, a torch.profiler Chrome
    trace): the ``profile`` line lists their top 10 device kernels by total
-   time with counts, and fails unless K1 and K2 (12 a step) are in it.
+   time with counts, and fails unless K1 and K2 (12 a step: its fused
+   kernel at the text tower's L 32) are in it.
 5. ``fp32_path``: the same CLI at ``MODEL.PRECISION fp32``, the
    golden-parity precision (tests/test_golden_e2e.py): golden stage 1
    (ZeroshotCLIP on the base classes), then CoOp trained for one epoch of
@@ -37,7 +39,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    (qkv shape, heads, dtype, mask)), in bf16 and fp32, with its time, the
    plain version's, one PyTorch library call's (a yardstick only; the port
    never calls it) and the least time the card could take (``bound_ms``);
-   then correctness at edge shapes the paths do not reach.
+   then correctness at edge shapes the paths do not reach (for K2 also
+   both sides of its bf16 route switch, L 1, 16, 64 and 65, at head dims
+   16, 32 and 64). Each K2 case names its ``route`` (``fused_L64`` or
+   ``tiled``).
 7. ``serve_path``: the port's serve CLI at ViT-B/16 (bf16, random init)
    on 84 synthetic images at 224^2 (one full 64-image batch and a 32-row
    bucket) and on one image (the 1-row bucket), in four quantization modes:
@@ -48,14 +53,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    predictor answering concurrent single images and one JSON batch, held
    to direct ``predict``; one eval-only CoOp stage of the train CLI with
    ``TRAINER.QUANT_FROZEN_VISION w8a8``. Asserts finite outputs, K3
-   launched 50 times per w8a8 image forward and K1 in every layer.
+   launched 50 times per w8a8 image forward (one count a product, the
+   rescale in its epilogue or, where K is split, in a second kernel),
+   every launch with the weight's K-major copy, and K1 in every layer.
 8. ``probe_path``: the port's int8 attention probe
    (``probe_int8_attention``) at its default full width (B 256, L 208,
    D 768, H 12), each variant on K4, one row a variant; asserts K4
    launched in every variant.
-9. ``kernel int8_matmul``: K3 against its plain version (exact) at every
-   (M, K, N) the serve path launched and at edge shapes, with its time,
-   the plain version's, ``torch._int_mm``'s and the bound.
+9. ``kernel int8_matmul``: K3 against its plain version (exact, with and
+   without the K-major weight copy) at every (M, K, N) the serve path
+   launched (with its ``route``: ``rescaled`` or ``split_k``) and at edge
+   shapes; its rescaled epilogue bit for bit against the plain rescale of
+   the plain product (per-row and 0-d scales, bf16 and fp32 out); the
+   int32 time, the plain version's, ``torch._int_mm``'s and the bound;
+   the rescaled bf16 time beside the int32 kernel plus the PyTorch
+   rescale, the plain versions and its bound.
 10. ``kernel int8_attention``: K4, each variant, against its plain version
    at the probe's shape and at edges (L 77 causal, L 197 unpadded, head
    dim 32, batches of 1 and 2, L 1024), with its time, the plain version's, SDPA's
@@ -229,6 +241,10 @@ EDGES = [
 # K1 only: batch 1 at a long sequence (the launcher splits the queries
 # into one-warp blocks to fill the card)
 K1_EDGES = EDGES + [(1, 1024, 1024, 1024, 16, False)]
+# K2 only: both sides of its bf16 route switch (one fused kernel at L <=
+# 64, the dq and dk/dv kernels above), at head dims 16, 32 and 64
+K2_EDGES = EDGES + [(3, L, L, 4 * d, 4, True) for L in (1, 16, 64, 65)
+                    for d in (16, 32, 64)]
 
 
 def check_kernels(device, launched):
@@ -461,11 +477,14 @@ def step_profile(trace_dir: str) -> dict:
     kernel_us = sum(e["dur"] for e in kernels)
     counts = {want: sum(n for name, (n, _) in by_name.items()
                         if want + "<" in name)
-              for want in ("mha_qkv_fwd_bf16", "mha_qkv_bwd_dq_bf16",
-                           "mha_qkv_bwd_dkdv_bf16")}
-    if not counts["mha_qkv_fwd_bf16"] or any(
-            counts[k] != 12 * PROFILE_STEPS for k in (
-                "mha_qkv_bwd_dq_bf16", "mha_qkv_bwd_dkdv_bf16")):
+              for want in ("mha_qkv_fwd_bf16", "mha_qkv_bwd_fused_bf16",
+                           "mha_qkv_bwd_dq_bf16", "mha_qkv_bwd_dkdv_bf16")}
+    # one K2 launch per text layer and step: the fused kernel (L <= 64),
+    # or the dq and dk/dv pair
+    k2 = counts["mha_qkv_bwd_fused_bf16"] + counts["mha_qkv_bwd_dq_bf16"]
+    if (not counts["mha_qkv_fwd_bf16"] or k2 != 12 * PROFILE_STEPS
+            or counts["mha_qkv_bwd_dq_bf16"]
+            != counts["mha_qkv_bwd_dkdv_bf16"]):
         raise AssertionError(f"the trace misses the port's kernels: "
                              f"{counts} ({len(by_name)} kernel names)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
@@ -679,7 +698,7 @@ def check_kernels_bwd(device, launched):
     correctness only at the same edges as K1."""
     import torch
     from clip_calibration_tpu_torch.ops.mha_qkv import (
-        mha_qkv_bwd, mha_qkv_bwd_reference)
+        bwd_route, mha_qkv_bwd, mha_qkv_bwd_reference)
     from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
                                                             time_ms)
     cases = by_shape(launched)
@@ -717,6 +736,7 @@ def check_kernels_bwd(device, launched):
             rec = {
                 "qkv": [B, L, D3], "heads": H, "mask": kind,
                 "real_len": real, "dtype": dname,
+                "route": bwd_route(L, dtype),
                 "main_path_launches": calls.get(dname, 0),
                 "max_abs_err": err, "atol": TOL_BWD[dname][0],
                 "rtol": TOL_BWD[dname][1], "ok": ok,
@@ -738,7 +758,7 @@ def check_kernels_bwd(device, launched):
     del flush
 
     errors = []
-    for B, real, L, D, H, causal in EDGES:
+    for B, real, L, D, H, causal in K2_EDGES:
         mask = pad_mask(real, L, causal, device)
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((B, L, 3 * D), generator=gen, device=device,
@@ -749,6 +769,7 @@ def check_kernels_bwd(device, launched):
                                qkv, mask, g, H)
             errors.append({"qkv": [B, L, 3 * D], "heads": H,
                            "dtype": str(dtype).split(".")[-1],
+                           "route": bwd_route(L, dtype),
                            "max_abs_err": err, "ok": ok})
     emit("kernel mha_qkv_bwd edges", cases=errors)
     if not all(e["ok"] for e in errors):
@@ -803,28 +824,29 @@ def check_train_step(device):
 
 
 class ShapeRecorder:
-    """Stands in for ``int8_matmul(x, w)`` and counts its calls by
-    (M, K, N): ``calls`` maps the shape to the count."""
+    """Stands in for ``ops/int8_matmul.py::kernel_product``, through which
+    every K3 launch goes, and counts its calls by (M, K, N) and route:
+    ``calls`` maps the shape to {route: count}; ``without_kmajor`` counts
+    the calls that brought no K-major weight copy."""
 
     def __init__(self, fn):
+        from clip_calibration_tpu_torch.ops.int8_matmul import k3_route
         self.fn = fn
+        self.route = k3_route
         self.calls = {}
+        self.without_kmajor = 0
 
-    def __call__(self, x, w):
-        key = (x.shape[0], x.shape[1], w.shape[1])
-        self.calls[key] = self.calls.get(key, 0) + 1
-        return self.fn(x, w)
+    def __call__(self, x, w, w_t=None, xs=None, *args, **kwargs):
+        M, K = x.shape
+        N = w.shape[1]
+        routes = self.calls.setdefault((M, K, N), {})
+        route = self.route(M, N, K, xs is not None)
+        routes[route] = routes.get(route, 0) + 1
+        self.without_kmajor += w_t is None
+        return self.fn(x, w, w_t, xs, *args, **kwargs)
 
     def count(self) -> int:
-        return sum(self.calls.values())
-
-    @property
-    def launches(self) -> int:
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, value: int):
-        self.fn.launches = value
+        return sum(sum(r.values()) for r in self.calls.values())
 
 
 class ForwardCounter:
@@ -1120,6 +1142,9 @@ def run_serve_path(k1, k3):
     if (k1.count() - k1_before, k3.count() - k3_before) != (
             mha_qkv.launches, int8_matmul.launches):
         raise AssertionError("the recorded calls miss kernel launches")
+    if k3.without_kmajor:
+        raise AssertionError(f"{k3.without_kmajor} K3 launches brought no "
+                             f"K-major weight copy (qdot passes kmajor)")
     emit("serve_path", stage="totals", tower_forwards=forwards,
          w8a8_image_forwards=w8a8_forwards,
          image_forwards_by_qmode=fwd.by_qmode,
@@ -1130,9 +1155,10 @@ def run_serve_path(k1, k3):
 
 # correctness and time at shapes the serve path does not reach: (M, K, N)
 K3_EDGES = [
-    (33, 70, 129),              # every dimension ragged, no vector loads
+    (33, 70, 129),              # every dimension ragged, K padded to 16
     (8, 8, 8),                  # smaller than one tile
-    (1, 768, 2304),             # M = 1
+    (1, 768, 2304),             # M = 1 (split K)
+    (1, 3072, 768),             # M = 1, long K (split K)
     (64 * 272, 1024, 3072),     # ViT-L/14 at batch 64: wqkv
     (64 * 272, 1024, 4096),     # ViT-L/14: w_fc
     (64 * 272, 4096, 1024),     # ViT-L/14: w_proj
@@ -1140,50 +1166,86 @@ K3_EDGES = [
 
 
 def check_int8_matmul(device, launched):
-    """K3 against its plain version (exact) at every (M, K, N) the serve
-    path launched and at ``K3_EDGES``: its time, the plain version's,
-    ``torch._int_mm``'s (cuBLASLt, a yardstick the port never calls;
-    null where its shape rules refuse) and the bound."""
+    """K3 at every (M, K, N) the serve path launched (and the routes it
+    took there: every serve-path product is rescaled) and at
+    ``K3_EDGES``: the int32 product exact against its plain version, with
+    the weight's K-major copy and without it; the rescaled epilogue bit
+    for bit against the plain rescale of the plain product, at per-row and
+    0-d scales, to bf16 and fp32. Times: the int32 product (the K-major
+    copy made before the timer), its plain version, ``torch._int_mm``
+    (cuBLASLt, a yardstick the port never calls; null where its shape
+    rules refuse) and the bound; the rescaled bf16 product, the kernel's
+    int32 product followed by the PyTorch rescale (``unfused_ms``), the
+    plain versions of both, and its bound."""
     import torch
     from clip_calibration_tpu_torch.ops.int8_matmul import (
-        int8_matmul, int8_matmul_reference)
+        int8_matmul, int8_matmul_reference, k3_route, rescale_reference,
+        rescaled_int8_matmul)
     from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
                                                             time_ms)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     gen = torch.Generator(device=device).manual_seed(4)
-    cases = [(shape, n) for shape, n in sorted(launched.items())] + \
-        [(shape, 0) for shape in K3_EDGES if shape not in launched]
+    cases = [(shape, r) for shape, r in sorted(launched.items())] + \
+        [(shape, {}) for shape in K3_EDGES if shape not in launched]
     out = []
-    for (M, K, N), calls in cases:
+    for (M, K, N), routes in cases:
         x = torch.randint(-127, 128, (M, K), generator=gen, device=device,
                           dtype=torch.int32).to(torch.int8)
         w = torch.randint(-127, 128, (K, N), generator=gen, device=device,
                           dtype=torch.int32).to(torch.int8)
-        got = int8_matmul(x, w)
-        torch.cuda.synchronize()
+        w_t = w.t().contiguous()
+        # activation-like scales: per row [M, 1] and one static value
+        xs = {"per_row": (torch.rand((M, 1), generator=gen, device=device)
+                          + 0.5) / 127,
+              "static": torch.tensor(0.75 / 127, device=device)}
+        ws = torch.rand((1, N), generator=gen, device=device) / 127
         want = int8_matmul_reference(x, w)
-        exact = bool(torch.equal(got, want))
+        got = int8_matmul(x, w, w_t)
+        exact = bool(torch.equal(got, want)) and bool(
+            torch.equal(int8_matmul(x, w), want))
         err = float((got.double() - want.double()).abs().max())
+        bit_equal = {}
+        for kind, scale in xs.items():
+            for dtype in (torch.bfloat16, torch.float32):
+                r = rescaled_int8_matmul(x, scale, w, ws, dtype, w_t)
+                bit_equal[f"{kind}_{str(dtype)[6:]}"] = bool(torch.equal(
+                    r, rescale_reference(want, scale, ws, dtype)))
+        torch.cuda.synchronize()
         try:
             torch._int_mm(x, w)
             library_ms = time_ms(lambda: torch._int_mm(x, w), flush)
         except RuntimeError:
             library_ms = None
+        xr = xs["per_row"]
         nbytes = M * K + K * N + 4 * M * N
+        r_bytes = M * K + K * N + 2 * M * N + 4 * (M + N)
         ops = 2.0 * M * N * K
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_FLOPS["int8"] * 1e3
-        rec = {"mkn": [M, K, N], "main_path_launches": calls,
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        rec = {"mkn": [M, K, N], "main_path_launches": sum(routes.values()),
+               "route": routes or {k3_route(M, N, K, False): 0},
                "exact": exact, "max_abs_err": err,
-               "ms": time_ms(lambda: int8_matmul(x, w), flush),
+               "rescaled_bit_equal": bit_equal,
+               "ms": time_ms(lambda: int8_matmul(x, w, w_t), flush),
                "plain_ms": time_ms(lambda: int8_matmul_reference(x, w),
                                    flush),
                "library_ms": library_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": nbytes, "ops": ops}
+               "bytes": nbytes, "ops": ops,
+               "rescaled_bf16": {
+                   "ms": time_ms(lambda: rescaled_int8_matmul(
+                       x, xr, w, ws, torch.bfloat16, w_t), flush),
+                   "unfused_ms": time_ms(lambda: rescale_reference(
+                       int8_matmul(x, w, w_t), xr, ws, torch.bfloat16),
+                       flush),
+                   "plain_ms": time_ms(lambda: rescale_reference(
+                       int8_matmul_reference(x, w), xr, ws, torch.bfloat16),
+                       flush),
+                   "bound_ms": max(r_bytes / PEAK_BYTES_PER_S * 1e3, t_ops),
+                   "bytes": r_bytes}}
         emit("kernel int8_matmul", **rec)
-        if not exact:
+        if not (exact and all(bit_equal.values())):
             raise AssertionError(
                 f"int8_matmul disagrees with its plain version: {rec}")
         out.append(rec)
@@ -1465,12 +1527,14 @@ def main() -> int:
             for name in ("mha_qkv_fwd", "mha_qkv_bwd")}
     emit("build", seconds=seconds, kernels=sorted(build.SOURCES),
          ptxas=ptxas, fp32_sass_hmma=hmma)
-    spilled = [fn for report in ptxas.values() for fn, r in report.items()
-               if "_f32<" in fn and r["spill_bytes"]]
+    # no fp32 attention instance and no instance of K2 or K3 may spill
+    spilled = [fn for name, report in ptxas.items()
+               for fn, r in report.items() if r["spill_bytes"] and (
+                   "_f32<" in fn or name in ("mha_qkv_bwd", "int8_matmul"))]
     if spilled or not all(counts and not any(counts.values())
                           for counts in hmma.values()) or not all(
             any("_f32<" in fn for fn in ptxas.get(n, {})) for n in hmma):
-        raise AssertionError(f"fp32 kernel instances: spilled {spilled}, "
+        raise AssertionError(f"kernel instances: spilled {spilled}, fp32 "
                              f"HMMA {hmma}, ptxas {sorted(ptxas)}")
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1483,10 +1547,11 @@ def main() -> int:
     })
     k1 = Recorder(kernels.mha_qkv)
     k2 = Recorder(kernels.mha_qkv_bwd)
-    k3 = ShapeRecorder(int8_ops.int8_matmul)
+    k3 = ShapeRecorder(int8_ops.kernel_product)
     old_cwd = os.getcwd()
     os.chdir(WORK)  # the ./temp feature caches are cwd-relative
-    attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.int8_matmul = k1, k2, k3
+    attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
+        k1, k2, k3
     try:
         k1_main = run_main_path(k1)
         k1_train, k2_train = run_train_path(k1, k2)
@@ -1494,7 +1559,7 @@ def main() -> int:
         k1_serve, k3_serve = run_serve_path(k1, k3)
         k4_probe, probe_rows = run_probe_path()
     finally:
-        attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.int8_matmul = \
+        attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
             k1.fn, k2.fn, k3.fn
         os.chdir(old_cwd)
     if "jax" in sys.modules:

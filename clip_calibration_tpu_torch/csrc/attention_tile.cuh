@@ -1,9 +1,10 @@
 // Tile code shared by the port's attention kernels (K1 csrc/mha_qkv_fwd.cu,
 // K2 csrc/mha_qkv_bwd.cu, K4 csrc/int8_attention.cu) and K3
-// (csrc/int8_matmul.cu): the mma.sync wrappers, fragment loads, and
-// cp.async copies that fill the two-stage tile rings the redesigned K1
-// and K4 stream keys through; and the fp32 register micro-tiles of the
-// fp32 K1 and K2 (end of the file).
+// (csrc/int8_matmul.cu, which takes the cp.async copies, bf16 packing and
+// allow_smem): the mma.sync wrappers, fragment loads, and cp.async copies
+// that fill the two-stage tile rings the redesigned K1, K2 and K4 stream
+// keys through; and the fp32 register micro-tiles of the fp32 K1 and K2
+// (end of the file).
 //
 // Fragment layouts (PTX ISA): g = lane / 4, t = lane % 4.
 // m16n8k16 bf16: A a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..),
@@ -36,12 +37,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// K3's form: the B fragment as one pair
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  mma_s8(c, a, b[0], b[1]);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -21,35 +21,50 @@
 // H = 12: 71.6 MB (21.4 us) against 10.6 GFLOP (10.7 us). In fp32 (no
 // tensor cores) the vision shape is bound by operations: 158 us at the
 // 67 TFLOP/s fp32 peak. What the design does about it: q, k, v and g are
-// read in place from their packed layouts, the [L, L] scores are
-// recomputed on the SM and never written, and only three fp32 numbers per
-// (row, head) go through device memory between the two kernels below.
+// read in place from their packed layouts and dqkv written in place, the
+// [L, L] scores are recomputed on the SM and never written, and at most
+// three fp32 numbers per (row, head) go through device memory between
+// two kernels.
 //
-// Like K1 (csrc/mha_qkv_fwd.cu), no block ever holds a whole [L, L] tile:
-// keys and queries stream through shared memory in tiles, so any L fits
-// (the TPU kernel keeps one whole [L, 3D] row and every [L, L] score block
-// in VMEM; on Hopper those would exceed shared memory at ViT-L lengths).
-// Two kernels, launched back to back on one stream, no atomics:
-// 1. dq: a block owns a tile of query rows of one head. A first pass over
-//    the key tiles computes, online, each row's softmax max m, sum l and
-//    Delta = rowsum(dp o P) (rescaled with the running max as l is); it
-//    stores (m, 1/l, Delta) to a small fp32 scratch [3, B, H, L]. A second
-//    pass recomputes P = exp(s - m) / l and ds and accumulates dq.
-// 2. dk/dv: a block owns a tile of key rows of one head and loops over the
-//    query tiles, recomputing P^T and ds^T from the stored row statistics
-//    and accumulating dk and dv in registers.
-//
-// Per input type:
-// - bf16: tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate), 4 warps x 16 rows per block. The score-shaped products
-//   (q k^T, g v^T, and their transposes k q^T, v g^T) take their B
-//   fragments from row-major shared-memory tiles as K1's q k^T does; the
-//   products that contract over keys or queries (ds k, P^T g, ds^T q)
-//   re-pack the fp32 accumulator fragment as a bf16 A operand (rounding P
-//   and ds to bf16 exactly where the JAX kernel casts them) and load B with
-//   ldmatrix.trans, as K1's P v does.
-// - fp32 (fp32 FMAs on the CUDA cores, no TF32): bound by operations at
-//   the vision shape, 159 us (10 B H L^2 d at 67 TFLOP/s). The same
+// - bf16, on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 sums), by
+//   one of two routes the launcher picks by L:
+//   (a) L <= 64 (the text towers: CoOp's L 32, L 16): one kernel, one
+//       block of 1, 2 or 4 warps per (head, batch row). q, k, v, g of each head (64 x 64 bf16 each at most) and
+//       the [L, L] mask come into shared memory by 16-byte cp.async; the
+//       fragments come from ldmatrix. Warp w owns query rows 16 w ..: S = q k^T with every key
+//       present, so a whole-row softmax (no online rescaling; the TPU
+//       kernel too keeps whole rows in VMEM), dP = g v^T, Delta =
+//       rowsum(dP o P), ds, and dq = scale bf16(ds) k from registers. P
+//       and ds go to shared memory in bf16 (where the JAX kernel casts
+//       them), and the same warp then owns key rows 16 w .. for dv =
+//       bf16(P)^T g and dk = scale bf16(ds)^T q, reading them back with
+//       ldmatrix.trans: no statistics scratch, no second launch, no
+//       product computed twice.
+//   (b) L > 64 (the vision towers, ViT-L; any L fits, as no block holds
+//       an [L, L] tile): two kernels, blocks of 4 warps x 16 rows, or 2
+//       where 4 would leave some of the 132 SMs idle. Each stages
+//       its own rows once (q and g; k and v) and streams the other side in
+//       64-row tiles with their mask tile (and, for dk/dv, the rows'
+//       statistics) through a two-stage cp.async ring, one barrier a tile,
+//       as the bf16 K1 does; full tiles take a step without the 16-row
+//       guards, a ragged last tile skips its 16-row chunks past L.
+//       1. dq: pass 1 walks the key tiles from the last to the first and
+//          keeps, online, each row's softmax max m, sum l and Delta
+//          (rescaled with the running max as l is), stored as (m, 1/l,
+//          Delta) to a small fp32 scratch [3, B, H, L]; pass 2 starts with
+//          tile 0, whose scores are still in registers, and accumulates
+//          dq: 2 n - 1 tile visits for n tiles.
+//       2. dk/dv: P^T and ds^T recomputed from the stored statistics; dk
+//          and dv accumulate in registers.
+//   The score-shaped products take their B fragments from row-major
+//   shared tiles by ldmatrix; the products that contract over keys or
+//   queries re-pack the fp32 accumulator fragment as a bf16 A operand
+//   (rounding P and ds to bf16 exactly where the JAX kernel casts them)
+//   and load B with ldmatrix.trans. exp is __expf (ex2.approx of x log2 e,
+//   as in the bf16 K1), whose error is far below bf16's.
+// - fp32 (fp32 FMAs on the CUDA cores, no TF32), the dq and dk/dv kernels
+//   of route (b) at every L: bound by operations at the vision shape,
+//   159 us (10 B H L^2 d at 67 TFLOP/s). The same
 //   register micro-tiles as K1's fp32 instance (attention_tile.cuh): each
 //   thread holds 4 rows x 4 columns of the score-shaped products (q k^T,
 //   g v^T; in the dk/dv kernel k q^T, v g^T) and 4 rows x d / 16 columns
@@ -73,6 +88,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -86,325 +102,562 @@ using namespace attn_tile;
 // bf16: mma.sync tensor-core kernels
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_WARPS = 4;
-constexpr int MROWS = 16 * MMA_WARPS;  // rows a block owns
-constexpr int MTILE = 64;              // rows of the streamed tile
-constexpr int PAD = 8;                 // bf16 per smem row: no bank conflicts
+constexpr int PAD = 8;         // bf16 per smem row past HD: no bank conflicts
+constexpr int KT = 64;         // rows of a streamed tile (route b)
+constexpr int BF16_STAGES = 2;  // the ring: tile i + 1 copies while i runs
+constexpr int MS = KT + 8;     // floats per row of a dq kernel mask tile
 
-// A fragments of rows r0 = row0 + g and r1 = r0 + 8 of a [rows, HD] bf16
-// matrix with row stride `stride`; rows at or past L read as zero.
+// A fragments of the 16 rows row0.. of a row-major [rows][HD] shared tile
+// (row stride ld), by ldmatrix
 template <int HD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4],
-                                       const __nv_bfloat16* p,
-                                       long long stride, int r0, int L,
-                                       int t) {
-  const int r1 = r0 + 8;
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[HD / 16][4],
+                                       const __nv_bfloat16* tile, int ld,
+                                       int row0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldmatrix_x4(a[kk][0], a[kk][1], a[kk][2], a[kk][3],
+                tile + (row0 + lane % 16) * ld + kk * 16 + (lane / 16) * 8);
+}
+
+// c0, c1 = A x T^T for the 16 rows of A and rows key0 .. key0 + 15 of the
+// row-major shared tile T ([key][HD], stride ld): a score-shaped product,
+// T's rows are the output columns (8 each in c0, c1)
+template <int HD>
+__device__ __forceinline__ void score_chunk(float (&c0)[4], float (&c1)[4],
+                                            const uint32_t (&a)[HD / 16][4],
+                                            const __nv_bfloat16* T, int ld,
+                                            int key0, int lane) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c0[e] = c1[e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    a[kk][0] = r0 < L ? ld_pair(p + r0 * stride + c) : 0u;
-    a[kk][1] = r1 < L ? ld_pair(p + r1 * stride + c) : 0u;
-    a[kk][2] = r0 < L ? ld_pair(p + r0 * stride + c + 8) : 0u;
-    a[kk][3] = r1 < L ? ld_pair(p + r1 * stride + c + 8) : 0u;
+    uint32_t b0, b1, b2, b3;
+    ldmatrix_x4(b0, b1, b2, b3,
+                T + (key0 + (lane / 16) * 8 + lane % 8) * ld + kk * 16 +
+                    ((lane / 8) & 1) * 8);
+    mma_bf16(c0, a[kk], b0, b1);
+    mma_bf16(c1, a[kk], b2, b3);
   }
 }
 
-// c[n] = A x T^T for the 16 rows of A and the MTILE rows of the
-// shared-memory tile T ([MTILE][HD + PAD], row-major): score-shaped
-// products, T's rows are the output columns.
+// acc += bf16(w) x T rows row0 .. row0 + 15 ([rows][HD], stride ld),
+// contracting over those 16 rows: w0, w1 are the two 8-column halves of a
+// [16, 16] fp32 accumulator fragment, re-packed as the bf16 A operand
+// (the rounding the JAX kernel applies to P and ds); B by ldmatrix.trans
 template <int HD>
-__device__ __forceinline__ void rows_x_tile(float (&c)[MTILE / 8][4],
-                                            const uint32_t (&a)[HD / 16][4],
-                                            const __nv_bfloat16 (*T)[HD + PAD],
-                                            int g, int t) {
+__device__ __forceinline__ void acc_chunk(float (&acc)[HD / 8][4],
+                                          const float (&w0)[4],
+                                          const float (&w1)[4],
+                                          const __nv_bfloat16* T, int ld,
+                                          int row0, int lane) {
+  const uint32_t wa[4] = {pack_bf16(w0[0], w0[1]), pack_bf16(w0[2], w0[3]),
+                          pack_bf16(w1[0], w1[1]), pack_bf16(w1[2], w1[3])};
 #pragma unroll
-  for (int n = 0; n < MTILE / 8; ++n) {
-    c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      mma_bf16(c[n], a[kk], ld_pair(&T[n * 8 + g][kk * 16 + 2 * t]),
-               ld_pair(&T[n * 8 + g][kk * 16 + 2 * t + 8]));
+  for (int n = 0; n < HD / 8; n += 2) {
+    uint32_t b0, b1, b2, b3;  // B fragments of d-tiles n, n+1
+    ldmatrix_x4_trans(b0, b1, b2, b3,
+                      T + (row0 + lane % 16) * ld + n * 8 + (lane / 16) * 8);
+    mma_bf16(acc[n], wa, b0, b1);
+    mma_bf16(acc[n + 1], wa, b2, b3);
   }
 }
 
-// acc += bf16(w) x T, contracting over the MTILE rows of T: w is a
-// [16, MTILE] fp32 accumulator fragment, re-packed as bf16 A operands.
+// acc += S^T x T over the 16 rows k0 .. k0 + 15 of S and T: S a row-major
+// bf16 shared tile ([k][m], stride lds) whose columns m0 .. m0 + 15 are
+// this warp's output rows, read transposed by ldmatrix.trans as the A
+// operand; T ([k][HD], stride ldt) by ldmatrix.trans as B
 template <int HD>
-__device__ __forceinline__ void acc_w_x_tile(float (&acc)[HD / 8][4],
-                                             const float (&w)[MTILE / 8][4],
-                                             const __nv_bfloat16 (*T)[HD + PAD],
-                                             int lane) {
+__device__ __forceinline__ void acc_trans_chunk(float (&acc)[HD / 8][4],
+                                                const __nv_bfloat16* S,
+                                                int lds, int m0, int k0,
+                                                const __nv_bfloat16* T,
+                                                int ldt, int lane) {
+  uint32_t a[4];
+  ldmatrix_x4_trans(a[0], a[1], a[2], a[3],
+                    S + (k0 + (lane / 16) * 8 + lane % 8) * lds + m0 +
+                        ((lane / 8) & 1) * 8);
 #pragma unroll
-  for (int kc = 0; kc < MTILE / 16; ++kc) {
-    const uint32_t wa[4] = {pack_bf16(w[2 * kc][0], w[2 * kc][1]),
-                            pack_bf16(w[2 * kc][2], w[2 * kc][3]),
-                            pack_bf16(w[2 * kc + 1][0], w[2 * kc + 1][1]),
-                            pack_bf16(w[2 * kc + 1][2], w[2 * kc + 1][3])};
+  for (int n = 0; n < HD / 8; n += 2) {
+    uint32_t b0, b1, b2, b3;
+    ldmatrix_x4_trans(b0, b1, b2, b3,
+                      T + (k0 + lane % 16) * ldt + n * 8 + (lane / 16) * 8);
+    mma_bf16(acc[n], a, b0, b1);
+    mma_bf16(acc[n + 1], a, b2, b3);
+  }
+}
+
+// rows r0 and r0 + 8 (those below L) of a [16, HD] fp32 fragment, times
+// `mul`, to bf16 columns 2t .. of the row-major output at p (row stride
+// `stride`)
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* p, long long stride,
+                                           const float (&acc)[HD / 8][4],
+                                           float mul, int r0, int L) {
 #pragma unroll
-    for (int n = 0; n < HD / 8; n += 2) {
-      uint32_t b0, b1, b2, b3;  // B fragments of d-tiles n, n+1
-      ldmatrix_x4_trans(b0, b1, b2, b3,
-                        &T[kc * 16 + lane % 16][n * 8 + (lane / 16) * 8]);
-      mma_bf16(acc[n], wa, b0, b1);
-      mma_bf16(acc[n + 1], wa, b2, b3);
+  for (int n = 0; n < HD / 8; ++n) {
+    if (r0 < L)
+      *reinterpret_cast<uint32_t*>(p + r0 * stride + n * 8) =
+          pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
+    if (r0 + 8 < L)
+      *reinterpret_cast<uint32_t*>(p + (r0 + 8) * stride + n * 8) =
+          pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
+  }
+}
+
+// the max (SUM false) or sum over the 4 threads of a quad, which share
+// the rows of an accumulator fragment
+template <bool SUM>
+__device__ __forceinline__ float quad_reduce(float v) {
+#pragma unroll
+  for (int o = 1; o <= 2; o *= 2) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = SUM ? v + w : fmaxf(v, w);
+  }
+  return v;
+}
+
+// Route (a), L <= 16 NW: a block of NW warps per head, HPB heads of one
+// batch row (1 as launched: FUSED_MAX_HEADS), holds all of each head's q,
+// k, v, g and the [L, L] mask (once, for every head) in shared memory. Warp w of a head owns query
+// rows 16 w .. for S = q k^T (every key present: a whole-row softmax),
+// dP = g v^T, ds and dq, and key rows 16 w .. for dk and dv, which read
+// bf16 P and ds back from shared memory transposed.
+template <int HD, int NW, int HPB>
+struct Fused {
+  static constexpr int LP = 16 * NW;    // rows and keys, padded
+  static constexpr int KS = HD + PAD;   // bf16 per q / k / v / g row
+  static constexpr int PS = LP + 8;     // bf16 per P / ds row
+  static constexpr int MLD = LP + 4;    // floats per mask row
+  static constexpr int TILE = LP * KS;  // bf16 per q / k / v / g tile
+  static constexpr int HEAD = 4 * TILE + 2 * LP * PS;  // bf16 per head
+  static constexpr int THREADS = 32 * NW * HPB;
+  static constexpr size_t SMEM = (size_t)HPB * HEAD * 2 + LP * MLD * 4;
+};
+
+template <int HD, int NW, int HPB>
+__global__ void __launch_bounds__(Fused<HD, NW, HPB>::THREADS)
+    mha_qkv_bwd_fused_bf16(const __nv_bfloat16* __restrict__ qkv,
+                           const float* __restrict__ mask,
+                           const __nv_bfloat16* __restrict__ grad,
+                           __nv_bfloat16* __restrict__ dqkv, int L, int D,
+                           float scale) {
+  using F = Fused<HD, NW, HPB>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* heads = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* ms = reinterpret_cast<float*>(heads + HPB * F::HEAD);
+
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int hh = threadIdx.x / 32 / NW, warp = threadIdx.x / 32 % NW;
+  const int b = blockIdx.y;
+  const long long stride = 3LL * D;
+  const __nv_bfloat16* base = qkv + (long long)b * L * stride;
+  const __nv_bfloat16* gb = grad + (long long)b * L * D;
+#pragma unroll
+  for (int i = 0; i < HPB; ++i) {  // every thread copies its share
+    __nv_bfloat16* q = heads + i * F::HEAD;
+    const int h = blockIdx.x * HPB + i;
+    load_tile<F::LP, HD>(q, base + h * HD, stride, 0, L, F::THREADS);
+    load_tile<F::LP, HD>(q + F::TILE, base + D + h * HD, stride, 0, L,
+                         F::THREADS);
+    load_tile<F::LP, HD>(q + 2 * F::TILE, base + 2 * D + h * HD, stride, 0,
+                         L, F::THREADS);
+    load_tile<F::LP, HD>(q + 3 * F::TILE, gb + h * HD, D, 0, L, F::THREADS);
+  }
+  load_mask(ms, F::MLD, mask, L, 0, F::LP, 0, F::LP, F::THREADS);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's head
+  const int h = blockIdx.x * HPB + hh;
+  __nv_bfloat16* qs = heads + hh * F::HEAD;
+  __nv_bfloat16* ks = qs + F::TILE;
+  __nv_bfloat16* vs = ks + F::TILE;
+  __nv_bfloat16* gs = vs + F::TILE;
+  __nv_bfloat16* ps = gs + F::TILE;
+  __nv_bfloat16* dss = ps + F::LP * F::PS;
+
+  const int row0 = warp * 16;  // this warp's query rows, then its keys
+  float s[2 * NW][4], dp[2 * NW][4];
+  {
+    uint32_t qa[HD / 16][4], ga[HD / 16][4];
+    ldsm_a<HD>(qa, qs, F::KS, row0, lane);
+    ldsm_a<HD>(ga, gs, F::KS, row0, lane);
+#pragma unroll
+    for (int np = 0; np < NW; ++np) {
+      score_chunk<HD>(s[2 * np], s[2 * np + 1], qa, ks, F::KS, np * 16, lane);
+      score_chunk<HD>(dp[2 * np], dp[2 * np + 1], ga, vs, F::KS, np * 16,
+                      lane);
     }
   }
-}
-
-// Stage MTILE rows [row0, row0 + MTILE) of a [L, HD] bf16 slice (row
-// stride `stride`) in shared memory by 16-byte loads; rows past L as zero.
-template <int HD>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16 (*T)[HD + PAD],
-                                           const __nv_bfloat16* p,
-                                           long long stride, int row0, int L,
-                                           int tid) {
-  for (int i = tid; i < MTILE * HD / 8; i += MMA_WARPS * 32) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8, row = row0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < L) v = *reinterpret_cast<const uint4*>(p + row * stride + c);
-    *reinterpret_cast<uint4*>(&T[r][c]) = v;
+  // s = (q k^T) scale + mask; keys past L get no weight
+  const float* m0 = ms + (row0 + g) * F::MLD;
+  float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+  for (int n = 0; n < 2 * NW; ++n) {
+    const int c = n * 8 + 2 * t;
+    const float2 a0 = *reinterpret_cast<const float2*>(m0 + c);
+    const float2 a1 = *reinterpret_cast<const float2*>(m0 + 8 * F::MLD + c);
+    const float mk[4] = {a0.x, a0.y, a1.x, a1.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = c + (e & 1) < L ? s[n][e] * scale + mk[e] : -INFINITY;
+      mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+    }
   }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) mx[i] = quad_reduce<false>(mx[i]);
+#pragma unroll
+  for (int n = 0; n < 2 * NW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = __expf(s[n][e] - mx[e / 2]);
+      l[e / 2] += s[n][e];
+    }
+  float inv_l[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv_l[i] = 1.f / quad_reduce<true>(l[i]);
+#pragma unroll
+  for (int n = 0; n < 2 * NW; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] *= inv_l[e / 2];  // P, fp32
+      delta[e / 2] += s[n][e] * dp[n][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) delta[i] = quad_reduce<true>(delta[i]);
+  // ds = P (dp - rowsum(dp P)); P and ds to shared memory in bf16
+  __nv_bfloat16* prow = ps + (row0 + g) * F::PS + 2 * t;
+  __nv_bfloat16* drow = dss + (row0 + g) * F::PS + 2 * t;
+#pragma unroll
+  for (int n = 0; n < 2 * NW; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - delta[e / 2]);
+    *reinterpret_cast<uint32_t*>(prow + n * 8) = pack_bf16(s[n][0], s[n][1]);
+    *reinterpret_cast<uint32_t*>(prow + 8 * F::PS + n * 8) =
+        pack_bf16(s[n][2], s[n][3]);
+    *reinterpret_cast<uint32_t*>(drow + n * 8) = pack_bf16(dp[n][0], dp[n][1]);
+    *reinterpret_cast<uint32_t*>(drow + 8 * F::PS + n * 8) =
+        pack_bf16(dp[n][2], dp[n][3]);
+  }
+  __nv_bfloat16* out = dqkv + (long long)b * L * stride + h * HD + 2 * t;
+  {  // dq = scale bf16(ds) k
+    float acc[HD / 8][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < NW; ++kc)
+      acc_chunk<HD>(acc, dp[2 * kc], dp[2 * kc + 1], ks, F::KS, kc * 16,
+                    lane);
+    store_rows<HD>(out, stride, acc, scale, row0 + g, L);
+  }
+  __syncthreads();  // every warp's P and ds rows are in shared memory
+  // this warp's keys: dv = bf16(P)^T g, dk = scale bf16(ds)^T q
+  float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
+#pragma unroll
+  for (int qc = 0; qc < NW; ++qc) {
+    acc_trans_chunk<HD>(dv, ps, F::PS, row0, qc * 16, gs, F::KS, lane);
+    acc_trans_chunk<HD>(dk, dss, F::PS, row0, qc * 16, qs, F::KS, lane);
+  }
+  store_rows<HD>(out + D, stride, dk, scale, row0 + g, L);
+  store_rows<HD>(out + 2 * D, stride, dv, 1.f, row0 + g, L);
 }
 
-// Fragment layouts (PTX ISA, mma.m16n8k16): g = lane / 4, t = lane % 4.
-// C 16x8: c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1).
-template <int HD>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
+// Route (b), L > 64: blocks of NW warps x 16 rows; one block owns query
+// rows (dq kernel) or key rows (dk/dv kernel) of one head, stages them
+// once and streams the other side in 64-row tiles through a two-stage
+// cp.async ring with its mask tile (and, for dk/dv, the rows' statistics).
+template <int HD, int NW>
+struct Tiled {
+  static constexpr int ROWS = 16 * NW;
+  static constexpr int KS = HD + PAD;
+  static constexpr int OWN = ROWS * KS;   // bf16 per own-rows tile
+  static constexpr int STREAM = KT * KS;  // bf16 per streamed tile
+  static constexpr int MT = ROWS + 4;     // floats per dk/dv mask row
+  static constexpr size_t DQ_STAGE = (size_t)2 * STREAM * 2 + ROWS * MS * 4;
+  static constexpr size_t DKDV_STAGE =
+      (size_t)2 * STREAM * 2 + KT * MT * 4 + 3 * KT * 4;
+  static constexpr size_t SMEM_DQ =
+      (size_t)2 * OWN * 2 + BF16_STAGES * DQ_STAGE;
+  static constexpr size_t SMEM_DKDV =
+      (size_t)2 * OWN * 2 + BF16_STAGES * DKDV_STAGE;
+};
+
+// dq for ROWS query rows of one head. Pass 1 walks the key tiles from the
+// last to the first, keeping each row's softmax max m, sum l and
+// Delta = rowsum(dp o P) online (rescaled with the running max as l is),
+// and stores (m, 1 / l, Delta) for the dk/dv kernel; pass 2 starts with
+// tile 0, whose scores are still in registers, and accumulates
+// dq = scale bf16(ds) k over tiles 0 .. n - 1: 2 n - 1 tiles in all.
+template <int HD, int NW>
+__global__ void __launch_bounds__(NW * 32)
     mha_qkv_bwd_dq_bf16(const __nv_bfloat16* __restrict__ qkv,
                         const float* __restrict__ mask,
                         const __nv_bfloat16* __restrict__ grad,
                         __nv_bfloat16* __restrict__ dqkv,
                         float* __restrict__ stats, int L, int D, int H,
                         float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[MTILE][HD + PAD];
-  __shared__ __align__(16) __nv_bfloat16 vs[MTILE][HD + PAD];
-  __shared__ __align__(16) float ms[MROWS][MTILE + 8];
+  using T = Tiled<HD, NW>;
+  constexpr int THREADS = NW * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* gs = qs + T::OWN;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + T::OWN);
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q_blk = blockIdx.x * MROWS;
-  const int r0 = q_blk + warp * 16 + g;  // this thread's rows: r0, r0 + 8
-  const bool active = q_blk + warp * 16 < L;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * T::ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int row0 = warp * 16;  // this warp's rows within the block
+  const bool active = q0 + row0 < L;
   const long long stride = 3LL * D;
-  const __nv_bfloat16* base = qkv + (long long)b * L * stride;
-  const __nv_bfloat16* kb = base + D + h * HD;
-  const __nv_bfloat16* vb = base + 2 * D + h * HD;
+  const __nv_bfloat16* base = qkv + (long long)b * L * stride + h * HD;
+  const int n = (L + KT - 1) / KT, total = 2 * n - 1;
+  auto tile_of = [&](int i) { return i < n ? n - 1 - i : i - n + 1; };
+  auto issue = [&](int i) {
+    unsigned char* st = ring + (i % BF16_STAGES) * T::DQ_STAGE;
+    __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(st);
+    const int k0 = tile_of(i) * KT;
+    load_tile<KT, HD>(kt, base + D, stride, k0, L, THREADS);
+    load_tile<KT, HD>(kt + T::STREAM, base + 2 * D, stride, k0, L, THREADS);
+    load_mask(reinterpret_cast<float*>(kt + 2 * T::STREAM), MS, mask, L, q0,
+              T::ROWS, k0, KT, THREADS);
+  };
+  load_tile<T::ROWS, HD>(qs, base, stride, q0, L, THREADS);
+  load_tile<T::ROWS, HD>(gs, grad + (long long)b * L * D + h * HD, D, q0, L,
+                         THREADS);
+  issue(0);
+  cp_async_commit();
 
   uint32_t qa[HD / 16][4], ga[HD / 16][4];
-  load_a<HD>(qa, base + h * HD, stride, r0, L, t);
-  load_a<HD>(ga, grad + (long long)b * L * D + h * HD, D, r0, L, t);
-
-  auto stage = [&](int k0) {
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<HD>(ks, kb, stride, k0, L, tid);
-    stage_rows<HD>(vs, vb, stride, k0, L, tid);
-    for (int i = tid; i < MROWS * MTILE; i += MMA_WARPS * 32) {
-      const int r = i / MTILE, c = i % MTILE, row = q_blk + r, key = k0 + c;
-      ms[r][c] = (row < L && key < L) ? mask[(long long)row * L + key] : 0.f;
-    }
-    __syncthreads();
-  };
-  // s = (q k^T) scale + mask over one staged key tile; keys past L: -inf
-  auto scores = [&](float (&s)[MTILE / 8][4], int k0) {
-    rows_x_tile<HD>(s, qa, ks, g, t);
-#pragma unroll
-    for (int n = 0; n < MTILE / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      const float2 m0 = *reinterpret_cast<const float2*>(&ms[warp * 16 + g][c]);
-      const float2 m1 =
-          *reinterpret_cast<const float2*>(&ms[warp * 16 + g + 8][c]);
-      const float mk[4] = {m0.x, m0.y, m1.x, m1.y};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = k0 + c + (e & 1) < L ? s[n][e] * scale + mk[e] : -INFINITY;
-    }
-  };
-
-  // pass 1: row statistics (online, as K1's forward)
   float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < L; k0 += MTILE) {
-    stage(k0);
-    if (!active) continue;
-    float s[MTILE / 8][4], dp[MTILE / 8][4];
-    scores(s, k0);
-    rows_x_tile<HD>(dp, ga, vs, g, t);
-    float tmax[2] = {-FLT_MAX, -FLT_MAX};
-#pragma unroll
-    for (int n = 0; n < MTILE / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tmax[e / 2] = fmaxf(tmax[e / 2], s[n][e]);
-    float alpha[2], rsum[2] = {0.f, 0.f}, rdot[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // the 4 threads of a group share a row
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m[i], tmax[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < MTILE / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m[e / 2]);
-        rsum[e / 2] += p;
-        rdot[e / 2] += p * dp[n][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
-      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
-      rdot[i] += __shfl_xor_sync(0xffffffffu, rdot[i], 1);
-      rdot[i] += __shfl_xor_sync(0xffffffffu, rdot[i], 2);
-      l[i] = l[i] * alpha[i] + rsum[i];
-      dsum[i] = dsum[i] * alpha[i] + rdot[i];
-    }
-  }
-  // l >= 1: the running max itself contributes exp(0)
-  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
-  const float delta[2] = {dsum[0] * inv_l[0], dsum[1] * inv_l[1]};
-  if (active && t == 0) {
-    const long long bhl = (long long)gridDim.z * H * L;
-    float* st = stats + ((long long)b * H + h) * L;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = r0 + 8 * i;
-      if (row < L) {
-        st[row] = m[i];
-        st[bhl + row] = inv_l[i];
-        st[2 * bhl + row] = delta[i];
-      }
-    }
-  }
+  float inv_l[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float dq[HD / 8][4] = {};
+  float s[KT / 8][4], dp[KT / 8][4];
 
-  // pass 2: dq = scale bf16(ds) k
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-  for (int k0 = 0; k0 < L; k0 += MTILE) {
-    stage(k0);
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<BF16_STAGES - 2>();  // this thread's copies of tile i
+    __syncthreads();  // everyone's; and tile i - 1 is consumed
+    if (i + 1 < total) issue(i + 1);  // into tile i - 1's stage
+    cp_async_commit();
     if (!active) continue;
-    float s[MTILE / 8][4], dp[MTILE / 8][4];
-    scores(s, k0);
-    rows_x_tile<HD>(dp, ga, vs, g, t);
-#pragma unroll
-    for (int n = 0; n < MTILE / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e / 2;
-        const float p = expf(s[n][e] - m[i]) * inv_l[i];
-        s[n][e] = p * (dp[n][e] - delta[i]);  // ds
-      }
-    acc_w_x_tile<HD>(dq, s, ks, lane);
-  }
+    if (i == 0) {
+      ldsm_a<HD>(qa, qs, T::KS, row0, lane);
+      ldsm_a<HD>(ga, gs, T::KS, row0, lane);
+    }
+    const unsigned char* st = ring + (i % BF16_STAGES) * T::DQ_STAGE;
+    const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* vt = kt + T::STREAM;
+    const float* mrow =
+        reinterpret_cast<const float*>(vt + T::STREAM) + (row0 + g) * MS;
+    const int k0 = tile_of(i) * KT, nk = min(KT, L - k0);
 
-  if (!active) return;
-  __nv_bfloat16* ob = dqkv + (long long)b * L * stride + h * HD + 2 * t;
+    // one visit of a tile; a full tile compiles without the 16-key guards
+    auto visit = [&](auto full) {
+      constexpr bool FULL = decltype(full)::value;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    if (r0 < L)
-      *reinterpret_cast<uint32_t*>(ob + r0 * stride + n * 8) =
-          pack_bf16(dq[n][0] * scale, dq[n][1] * scale);
-    if (r0 + 8 < L)
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * stride + n * 8) =
-          pack_bf16(dq[n][2] * scale, dq[n][3] * scale);
+      for (int np = 0; np < KT / 16; ++np) {
+        if (FULL || np * 16 < nk) {
+          score_chunk<HD>(s[2 * np], s[2 * np + 1], qa, kt, T::KS, np * 16,
+                          lane);
+          score_chunk<HD>(dp[2 * np], dp[2 * np + 1], ga, vt, T::KS,
+                          np * 16, lane);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int nn = 2 * np + half, c = nn * 8 + 2 * t;
+          if (!FULL && np * 16 >= nk) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[nn][e] = -INFINITY;
+              dp[nn][e] = 0.f;
+            }
+            continue;
+          }
+          const float2 a0 = *reinterpret_cast<const float2*>(mrow + c);
+          const float2 a1 = *reinterpret_cast<const float2*>(mrow + 8 * MS + c);
+          const float mk[4] = {a0.x, a0.y, a1.x, a1.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[nn][e] = FULL || c + (e & 1) < nk ? s[nn][e] * scale + mk[e]
+                                                : -INFINITY;
+        }
+      }
+      if (i < n) {  // pass 1: the running statistics
+        float tmax[2] = {row_reduce<false>(s, 0), row_reduce<false>(s, 1)};
+        float alpha[2], rsum[2] = {0.f, 0.f}, rdot[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_reduce<false>(tmax[r]));
+          alpha[r] = __expf(m[r] - m_new);
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int nn = 0; nn < KT / 8; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = __expf(s[nn][e] - m[e / 2]);
+            rsum[e / 2] += p;
+            rdot[e / 2] += p * dp[nn][e];
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] = l[r] * alpha[r] + quad_reduce<true>(rsum[r]);
+          dsum[r] = dsum[r] * alpha[r] + quad_reduce<true>(rdot[r]);
+        }
+      }
+      if (i == n - 1) {  // tile 0: the statistics are final
+        const long long bhl = (long long)gridDim.z * H * L;
+        float* sp = stats + ((long long)b * H + h) * L;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          inv_l[r] = 1.f / l[r];  // l >= 1: the max contributes exp(0)
+          delta[r] = dsum[r] * inv_l[r];
+          const int row = q0 + row0 + g + 8 * r;
+          if (t == 0 && row < L) {
+            sp[row] = m[r];
+            sp[bhl + row] = inv_l[r];
+            sp[2 * bhl + row] = delta[r];
+          }
+        }
+      }
+      if (i >= n - 1) {  // pass 2: ds and dq += bf16(ds) k
+#pragma unroll
+        for (int nn = 0; nn < KT / 8; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = __expf(s[nn][e] - m[e / 2]) * inv_l[e / 2];
+            s[nn][e] = p * (dp[nn][e] - delta[e / 2]);
+          }
+#pragma unroll
+        for (int kc = 0; kc < KT / 16; ++kc)
+          if (FULL || kc * 16 < nk)
+            acc_chunk<HD>(dq, s[2 * kc], s[2 * kc + 1], kt, T::KS, kc * 16,
+                          lane);
+      }
+    };
+    if (nk == KT)
+      visit(std::true_type{});
+    else
+      visit(std::false_type{});
   }
+  if (active)
+    store_rows<HD>(dqkv + (long long)b * L * stride + h * HD + 2 * t, stride,
+                   dq, scale, q0 + row0 + g, L);
 }
 
-// dk and dv for one tile of MROWS keys; the accumulator rows are keys and
-// its columns the queries of the streamed tile (s^T, dp^T, P^T, ds^T).
-template <int HD>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
+// dk and dv for ROWS key rows of one head: the accumulator rows are keys
+// and its columns the queries of the streamed tile (s^T, dp^T, P^T, ds^T),
+// P recomputed from the dq kernel's statistics.
+template <int HD, int NW>
+__global__ void __launch_bounds__(NW * 32)
     mha_qkv_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ qkv,
                           const float* __restrict__ mask,
                           const __nv_bfloat16* __restrict__ grad,
                           __nv_bfloat16* __restrict__ dqkv,
                           const float* __restrict__ stats, int L, int D,
                           int H, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[MTILE][HD + PAD];
-  __shared__ __align__(16) __nv_bfloat16 gs[MTILE][HD + PAD];
-  // mask tile transposed, [key][query]: the accumulator's rows are keys
-  __shared__ __align__(16) float mt[MROWS][MTILE + 8];
-  __shared__ float sm[MTILE], sil[MTILE], sdl[MTILE];
+  using T = Tiled<HD, NW>;
+  constexpr int THREADS = NW * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + T::OWN;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + T::OWN);
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int k_blk = blockIdx.x * MROWS;
-  const int r0 = k_blk + warp * 16 + g;  // this thread's keys: r0, r0 + 8
-  const bool active = k_blk + warp * 16 < L;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k_blk = blockIdx.x * T::ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int row0 = warp * 16;  // this warp's keys within the block
+  const bool active = k_blk + row0 < L;
   const long long stride = 3LL * D;
-  const __nv_bfloat16* base = qkv + (long long)b * L * stride;
-  const __nv_bfloat16* qb = base + h * HD;
+  const __nv_bfloat16* base = qkv + (long long)b * L * stride + h * HD;
   const __nv_bfloat16* gb = grad + (long long)b * L * D + h * HD;
   const long long bhl = (long long)gridDim.z * H * L;
-  const float* st = stats + ((long long)b * H + h) * L;
+  const float* sp = stats + ((long long)b * H + h) * L;
+  const int n = (L + KT - 1) / KT;
+  auto issue = [&](int i) {
+    unsigned char* st = ring + (i % BF16_STAGES) * T::DKDV_STAGE;
+    __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(st);
+    float* mt = reinterpret_cast<float*>(qt + 2 * T::STREAM);
+    float* s3 = mt + KT * T::MT;
+    const int q0 = i * KT;
+    load_tile<KT, HD>(qt, base, stride, q0, L, THREADS);
+    load_tile<KT, HD>(qt + T::STREAM, gb, D, q0, L, THREADS);
+    // mask rows: the tile's queries; columns: this block's keys
+    load_mask(mt, T::MT, mask, L, q0, KT, k_blk, T::ROWS, THREADS);
+    for (int j = threadIdx.x; j < 3 * KT; j += THREADS) {
+      const int row = q0 + j % KT;
+      const bool ok = row < L;
+      cp_async4(s3 + j, ok ? sp + (j / KT) * bhl + row : sp, ok);
+    }
+  };
+  load_tile<T::ROWS, HD>(ks, base + D, stride, k_blk, L, THREADS);
+  load_tile<T::ROWS, HD>(vs, base + 2 * D, stride, k_blk, L, THREADS);
+  issue(0);
+  cp_async_commit();
 
   uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_a<HD>(ka, base + D + h * HD, stride, r0, L, t);
-  load_a<HD>(va, base + 2 * D + h * HD, stride, r0, L, t);
-
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += MTILE) {
-    __syncthreads();  // the previous tile is consumed
-    stage_rows<HD>(qs, qb, stride, q0, L, tid);
-    stage_rows<HD>(gs, gb, D, q0, L, tid);
-    for (int i = tid; i < MTILE * MROWS; i += MMA_WARPS * 32) {
-      // read along keys (coalesced), write transposed
-      const int r = i / MROWS, c = i % MROWS, row = q0 + r, key = k_blk + c;
-      mt[c][r] = (row < L && key < L) ? mask[(long long)row * L + key] : 0.f;
-    }
-    for (int i = tid; i < MTILE; i += MMA_WARPS * 32) {
-      const int row = q0 + i;
-      sm[i] = row < L ? st[row] : 0.f;
-      sil[i] = row < L ? st[bhl + row] : 0.f;
-      sdl[i] = row < L ? st[2 * bhl + row] : 0.f;
-    }
+  float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<BF16_STAGES - 2>();
     __syncthreads();
+    if (i + 1 < n) issue(i + 1);
+    cp_async_commit();
     if (!active) continue;
+    if (i == 0) {
+      ldsm_a<HD>(ka, ks, T::KS, row0, lane);
+      ldsm_a<HD>(va, vs, T::KS, row0, lane);
+    }
+    const unsigned char* st = ring + (i % BF16_STAGES) * T::DKDV_STAGE;
+    const __nv_bfloat16* qt = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* gt = qt + T::STREAM;
+    const float* mt = reinterpret_cast<const float*>(qt + 2 * T::STREAM);
+    const float* s3 = mt + KT * T::MT;
+    const int q0 = i * KT, nq = min(KT, L - q0);
 
-    float p[MTILE / 8][4], ds[MTILE / 8][4];
-    rows_x_tile<HD>(p, ka, qs, g, t);   // s^T = k q^T
-    rows_x_tile<HD>(ds, va, gs, g, t);  // dp^T = v g^T
+    auto visit = [&](auto full) {
+      constexpr bool FULL = decltype(full)::value;
+      float p[KT / 8][4], ds[KT / 8][4];
 #pragma unroll
-    for (int n = 0; n < MTILE / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);  // query within the tile
-        const float mk = mt[warp * 16 + g + 8 * (e / 2)][c];
-        const float pv =
-            q0 + c < L ? expf(p[n][e] * scale + mk - sm[c]) * sil[c] : 0.f;
-        p[n][e] = pv;
-        ds[n][e] = pv * (ds[n][e] - sdl[c]);
+      for (int np = 0; np < KT / 16; ++np) {
+        if (FULL || np * 16 < nq) {
+          score_chunk<HD>(p[2 * np], p[2 * np + 1], ka, qt, T::KS, np * 16,
+                          lane);  // s^T = k q^T
+          score_chunk<HD>(ds[2 * np], ds[2 * np + 1], va, gt, T::KS,
+                          np * 16, lane);  // dp^T = v g^T
+        }
       }
-    acc_w_x_tile<HD>(dv, p, gs, lane);   // dv += bf16(P)^T g
-    acc_w_x_tile<HD>(dk, ds, qs, lane);  // dk += bf16(ds)^T q
-  }
-
-  if (!active) return;
-  __nv_bfloat16* kout = dqkv + (long long)b * L * stride + D + h * HD + 2 * t;
-  __nv_bfloat16* vout = kout + D;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    if (r0 < L) {
-      *reinterpret_cast<uint32_t*>(kout + r0 * stride + n * 8) =
-          pack_bf16(dk[n][0] * scale, dk[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(vout + r0 * stride + n * 8) =
-          pack_bf16(dv[n][0], dv[n][1]);
-    }
-    if (r0 + 8 < L) {
-      *reinterpret_cast<uint32_t*>(kout + (r0 + 8) * stride + n * 8) =
-          pack_bf16(dk[n][2] * scale, dk[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(vout + (r0 + 8) * stride + n * 8) =
-          pack_bf16(dv[n][2], dv[n][3]);
-    }
+      for (int nn = 0; nn < KT / 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nn * 8 + 2 * t + (e & 1);  // query within the tile
+          if (FULL || c < nq) {
+            const float mk = mt[c * T::MT + row0 + g + 8 * (e / 2)];
+            const float pv =
+                __expf(p[nn][e] * scale + mk - s3[c]) * s3[KT + c];
+            p[nn][e] = pv;
+            ds[nn][e] = pv * (ds[nn][e] - s3[2 * KT + c]);
+          } else {
+            p[nn][e] = ds[nn][e] = 0.f;
+          }
+        }
+#pragma unroll
+      for (int kc = 0; kc < KT / 16; ++kc)
+        if (FULL || kc * 16 < nq) {
+          acc_chunk<HD>(dv, p[2 * kc], p[2 * kc + 1], gt, T::KS, kc * 16,
+                        lane);  // dv += bf16(P)^T g
+          acc_chunk<HD>(dk, ds[2 * kc], ds[2 * kc + 1], qt, T::KS, kc * 16,
+                        lane);  // dk += bf16(ds)^T q
+        }
+    };
+    if (nq == KT)
+      visit(std::true_type{});
+    else
+      visit(std::false_type{});
   }
+  if (!active) return;
+  __nv_bfloat16* out = dqkv + (long long)b * L * stride + D + h * HD + 2 * t;
+  store_rows<HD>(out, stride, dk, scale, k_blk + row0 + g, L);
+  store_rows<HD>(out + D, stride, dv, 1.f, k_blk + row0 + g, L);
 }
 
 // ---------------------------------------------------------------------------
@@ -746,24 +999,100 @@ constexpr int SMS = 132;
 // as at 32, so padding only costs (tools/kernel_variants.py `rows_64`)
 constexpr int F32_WASTE_PCT = 10;
 
+using bf16 = __nv_bfloat16;
+
+// the most heads a fused block takes: 1. Two (the mask copied once for
+// both, where H is even, the grid still fills the SMs and a head has at
+// most 2 warps) were 3-5% slower at L 16 and 32 on the H100
+// (tools/kernel_variants.py `two_heads_a_block`, PERF.md)
+constexpr int FUSED_MAX_HEADS = 1;
+
+template <int HD, int NW, int HPB>
+cudaError_t launch_fused_heads(const bf16* qkv, const float* mask,
+                               const bf16* grad, bf16* dqkv, int B, int L,
+                               int D, int H, float scale,
+                               cudaStream_t stream) {
+  using F = Fused<HD, NW, HPB>;
+  static size_t allowed = 0;
+  auto kernel = mha_qkv_bwd_fused_bf16<HD, NW, HPB>;
+  const cudaError_t err = allow_smem(kernel, F::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H / HPB, B), F::THREADS, F::SMEM, stream>>>(
+      qkv, mask, grad, dqkv, L, D, scale);
+  return cudaGetLastError();
+}
+
+template <int HD, int NW>
+cudaError_t launch_fused(const bf16* qkv, const float* mask, const bf16* grad,
+                         bf16* dqkv, int B, int L, int D, int H, float scale,
+                         cudaStream_t stream) {
+  if constexpr (NW <= 2 && FUSED_MAX_HEADS >= 2) {
+    if (H % 2 == 0 && (long long)(H / 2) * B >= SMS)
+      return launch_fused_heads<HD, NW, 2>(qkv, mask, grad, dqkv, B, L, D,
+                                           H, scale, stream);
+  }
+  return launch_fused_heads<HD, NW, 1>(qkv, mask, grad, dqkv, B, L, D, H,
+                                       scale, stream);
+}
+
+template <int HD, int NW>
+cudaError_t launch_tiled(const bf16* qkv, const float* mask, const bf16* grad,
+                         bf16* dqkv, float* stats, int B, int L, int D, int H,
+                         float scale, cudaStream_t stream) {
+  using T = Tiled<HD, NW>;
+  static size_t allowed_dq = 0, allowed_dkdv = 0;
+  auto dq = mha_qkv_bwd_dq_bf16<HD, NW>;
+  auto dkdv = mha_qkv_bwd_dkdv_bf16<HD, NW>;
+  cudaError_t err = allow_smem(dq, T::SMEM_DQ, allowed_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(dkdv, T::SMEM_DKDV, allowed_dkdv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + T::ROWS - 1) / T::ROWS, H, B);
+  dq<<<grid, NW * 32, T::SMEM_DQ, stream>>>(qkv, mask, grad, dqkv, stats, L,
+                                             D, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv<<<grid, NW * 32, T::SMEM_DKDV, stream>>>(qkv, mask, grad, dqkv, stats,
+                                                 L, D, H, scale);
+  return cudaGetLastError();
+}
+
+// the longest L route (a) takes: one block holds the whole head
+constexpr int FUSED_MAX_L = 64;
+
+template <int HD>
+cudaError_t launch_bf16(const bf16* qkv, const float* mask, const bf16* grad,
+                        bf16* dqkv, float* stats, int B, int L, int D, int H,
+                        float scale, cudaStream_t stream) {
+  if (L <= FUSED_MAX_L) {  // one warp per 16 rows: 1, 2 or 4
+    if (L <= 16)
+      return launch_fused<HD, 1>(qkv, mask, grad, dqkv, B, L, D, H, scale,
+                                 stream);
+    if (L <= 32)
+      return launch_fused<HD, 2>(qkv, mask, grad, dqkv, B, L, D, H, scale,
+                                 stream);
+    return launch_fused<HD, 4>(qkv, mask, grad, dqkv, B, L, D, H, scale,
+                               stream);
+  }
+  // 4 warps a block, 2 where 4 would leave SMs idle (one-warp blocks
+  // spilled in the dq kernel at head dim 16 on __expf)
+  if ((long long)((L + 63) / 64) * H * B >= SMS)
+    return launch_tiled<HD, 4>(qkv, mask, grad, dqkv, stats, B, L, D, H,
+                               scale, stream);
+  return launch_tiled<HD, 2>(qkv, mask, grad, dqkv, stats, B, L, D, H, scale,
+                             stream);
+}
+
 template <int HD>
 cudaError_t launch(const void* qkv, const float* mask, const void* grad,
                    void* dqkv, float* stats, int B, int L, int D, int H,
                    int dtype, cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)HD);
-  if (dtype == 1) {
-    using T = __nv_bfloat16;
-    const dim3 grid((L + MROWS - 1) / MROWS, H, B);
-    mha_qkv_bwd_dq_bf16<HD><<<grid, MMA_WARPS * 32, 0, stream>>>(
-        static_cast<const T*>(qkv), mask, static_cast<const T*>(grad),
-        static_cast<T*>(dqkv), stats, L, D, H, scale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    mha_qkv_bwd_dkdv_bf16<HD><<<grid, MMA_WARPS * 32, 0, stream>>>(
-        static_cast<const T*>(qkv), mask, static_cast<const T*>(grad),
-        static_cast<T*>(dqkv), stats, L, D, H, scale);
-    return cudaGetLastError();
-  }
+  if (dtype == 1)
+    return launch_bf16<HD>(static_cast<const bf16*>(qkv), mask,
+                           static_cast<const bf16*>(grad),
+                           static_cast<bf16*>(dqkv), stats, B, L, D, H, scale,
+                           stream);
   const float* q = static_cast<const float*>(qkv);
   const float* g = static_cast<const float*>(grad);
   float* dq = static_cast<float*>(dqkv);
@@ -785,9 +1114,9 @@ cudaError_t launch(const void* qkv, const float* mask, const void* grad,
 
 // qkv [B, L, 3D] and grad [B, L, D] (dtype 0: float32, 1: bfloat16; both
 // 16-byte aligned), mask [L, L] float32, dqkv [B, L, 3D] of qkv's dtype,
-// stats float32 scratch of 3 * B * H * L; all contiguous on the current
-// device, head dim D / H in {16, 32, 64}. Returns the launches'
-// cudaError_t (0 on success); does not synchronise.
+// stats float32 scratch of 3 * B * H * L (unused by bf16 at L <= 64); all
+// contiguous on the current device, head dim D / H in {16, 32, 64}.
+// Returns the launches' cudaError_t (0 on success); does not synchronise.
 extern "C" int mha_qkv_bwd(const void* qkv, const void* mask,
                            const void* grad, void* dqkv, void* stats, int B,
                            int L, int D, int H, int dtype, void* stream) {

@@ -144,7 +144,11 @@ def flat_params(model: CLIP) -> Dict[str, torch.Tensor]:
     ``int8``/``scale``/``act_scale`` leaves)."""
     flat: Dict[str, torch.Tensor] = {}
     stacked: Dict[str, list] = {}
+    # persistent buffers only: a QuantizedWeight's kmajor copy is derived
+    persistent = set(model.state_dict(keep_vars=True))
     for name, p in [*model.named_parameters(), *model.named_buffers()]:
+        if name not in persistent:
+            continue
         parts = name.split(".")
         if parts[1:2] == ["blocks"]:
             key = "/".join(parts[:2] + parts[3:])

@@ -5,8 +5,9 @@ K1) and backward (kernel K2).
 ``pallas_mha_qkv`` with its custom VJP: one ``torch.autograd.Function``
 whose forward launches K1 (``csrc/mha_qkv_fwd.cu``) and saves
 ``(qkv, mask)``, the JAX ``_fwd``'s residuals, and whose backward launches
-K2 (``csrc/mha_qkv_bwd.cu``) and returns ``dqkv``; the mask gets no
-gradient (JAX's is zero). Both are built at first use (``ops/build.py``).
+K2 (``csrc/mha_qkv_bwd.cu``; ``bwd_route`` names which of its kernels)
+and returns ``dqkv``; the mask gets no gradient (JAX's is zero). Both are
+built at first use (``ops/build.py``).
 CPU tensors run the plain versions ``mha_qkv_reference`` and
 ``mha_qkv_bwd_reference`` below, in both directions. Any other input
 raises. Unlike the JAX ``_bwd``, which routes small shapes to an einsum
@@ -17,10 +18,10 @@ Numerics: scores, softmax and sums are fp32 on both sides. The forward
 kernel applies the 1/sqrt(d) scale to the fp32 scores and normalises once
 at the end (online softmax); the plain version, like the JAX code, scales
 q in the input dtype and normalises P before rounding it to v's dtype. The
-backward kernel recomputes P from stored row statistics and rounds P and
-ds to the input dtype where the JAX kernel does. In fp32 kernel and plain
-version agree to summation order; in bf16 they differ by bf16 rounding
-(tolerances in ``chip_smoke.py``).
+backward kernels round P and ds to the input dtype where the JAX kernel
+does; above ``BWD_FUSED_MAX_L`` they recompute P from stored row
+statistics. In fp32 kernel and plain version agree to summation order; in
+bf16 they differ by bf16 rounding (tolerances in ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -82,6 +83,19 @@ def mha_qkv_bwd_reference(qkv: torch.Tensor, mask: torch.Tensor,
     dk = scale * torch.matmul(dsb.transpose(-1, -2), q.float())
     return torch.cat([_merge_heads(t) for t in (dq, dk, dv)],
                      dim=-1).to(qkv.dtype)
+
+
+#: the longest L at which the bf16 K2 runs as one fused kernel per (head,
+#: batch row) (``csrc/mha_qkv_bwd.cu`` route (a); ``FUSED_MAX_L`` there)
+BWD_FUSED_MAX_L = 64
+
+
+def bwd_route(L: int, dtype) -> str:
+    """The route K2's launcher takes: ``fused_L64`` (bf16 at L <=
+    ``BWD_FUSED_MAX_L``: one kernel, whole rows in shared memory) or
+    ``tiled`` (the dq and dk/dv kernels; fp32 at every L)."""
+    return ("fused_L64" if dtype == torch.bfloat16 and L <= BWD_FUSED_MAX_L
+            else "tiled")
 
 
 def _check(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int):
@@ -149,8 +163,10 @@ def mha_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
     if g.data_ptr() % 16:
         raise ValueError("g must be 16-byte aligned (vector loads)")
     dqkv = torch.empty_like(qkv)
-    # per (row, head): softmax max, 1 / sum, rowsum(dp * P)
-    stats = torch.empty((3, B, n_heads, L), dtype=torch.float32,
+    # per (row, head): softmax max, 1 / sum, rowsum(dp * P); the fused
+    # route keeps them on the SM
+    stats = torch.empty((3, B, n_heads, L) if bwd_route(L, qkv.dtype)
+                        == "tiled" else (0,), dtype=torch.float32,
                         device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = _library("mha_qkv_bwd").mha_qkv_bwd(

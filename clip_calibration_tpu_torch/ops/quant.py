@@ -8,7 +8,10 @@ package's bits at fp32:
 - a quantized weight is a ``QuantizedWeight`` module with buffers
   ``int8`` (shaped like the weight, [in, out]), ``scale`` (fp32, the
   contraction axis kept as 1: [1, out]) and optionally ``act_scale`` (a
-  0-d fp32 static activation scale). ``quantize_clip_params`` puts these
+  0-d fp32 static activation scale), and the non-persistent buffer
+  ``kmajor``, ``int8`` transposed ([out, in], contiguous): the layout
+  kernel K3 reads, made once; it follows ``.to(device)`` but is in no
+  state dict, flat-params dict or file. ``quantize_clip_params`` puts these
   holders in place of the matmul ``Parameter``s on a copy of the tower;
   every other tensor (LayerNorms, embeddings, biases, the text tower, the
   logit scale) is shared with the original model, not copied.
@@ -22,8 +25,10 @@ package's bits at fp32:
   activation scales), ``w8a8_dynamic`` (per-row, ignoring any
   ``act_scale``) and ``w8a8_kernel`` (the JAX package's kernel-backed
   per-row path, ``w8a8_matmul``). All three int8 modes run their
-  int8 x int8 -> int32 product through ``ops/int8_matmul.py`` (kernel K3 on
-  the card), then rescale ``acc * x_scale * w_scale`` in fp32.
+  int8 x int8 -> int32 product and the fp32 rescale ``acc * x_scale *
+  w_scale`` through ``ops/int8_matmul.py::rescaled_int8_matmul`` (on the
+  card one launch of kernel K3, the rescale in its epilogue, the weight's
+  ``kmajor`` copy passed).
 
 The text-tower calibration (``calibrate_text_act_scales``,
 ``attach_text_act_scales``) serves only trainers that are not ported yet
@@ -44,14 +49,20 @@ from .int8_matmul import rescaled_int8_matmul, w8a8_matmul
 
 class QuantizedWeight(nn.Module):
     """int8 weight, its fp32 per-output-channel scale and an optional
-    static activation scale, as buffers (they follow ``.to(device)``)."""
+    static activation scale, as buffers (they follow ``.to(device)``), and
+    the weight's K-major copy ``kmajor`` (non-persistent; made from ``q``
+    unless given)."""
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor,
-                 act_scale: Optional[torch.Tensor] = None):
+                 act_scale: Optional[torch.Tensor] = None,
+                 kmajor: Optional[torch.Tensor] = None):
         super().__init__()
         self.register_buffer("int8", q)
         self.register_buffer("scale", scale)
         self.register_buffer("act_scale", act_scale)
+        if kmajor is None:
+            kmajor = q.transpose(-1, -2).contiguous()
+        self.register_buffer("kmajor", kmajor, persistent=False)
 
     @property
     def shape(self):
@@ -116,8 +127,9 @@ def qdot(x: torch.Tensor, w, qmode: str = "dequant") -> torch.Tensor:
     if qmode == "w8a8" and w.act_scale is not None:
         # static calibrated scale: one scalar, no reduction over x
         return rescaled_int8_matmul(_to_int8(x.float(), w.act_scale),
-                                    w.act_scale, w.int8, w.scale, x.dtype)
-    return w8a8_matmul(x, w.int8, w.scale)
+                                    w.act_scale, w.int8, w.scale, x.dtype,
+                                    w.kmajor)
+    return w8a8_matmul(x, w.int8, w.scale, w.kmajor)
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +251,7 @@ def load_act_stats(path: str) -> Dict[str, Any]:
 
 def _with_act_scale(w: QuantizedWeight, amax) -> QuantizedWeight:
     a = torch.as_tensor(stats_to_numpy(amax), device=w.int8.device)
-    return QuantizedWeight(w.int8, w.scale, _absmax_scale(a))
+    return QuantizedWeight(w.int8, w.scale, _absmax_scale(a), w.kmajor)
 
 
 def attach_act_scales(qmodel, stats):

@@ -1,22 +1,28 @@
-"""Times variants of an attention kernel's source on the card, side by
-side with the unchanged source.
+"""Times variants of a kernel's source on the card, side by side with
+the unchanged source.
 
     python -m clip_calibration_tpu_torch.tools.kernel_variants TARGET \\
-        [VARIANTS.json]
+        [VARIANTS.json] [--csrc DIR] [--against DIR]
 
 TARGET is ``mha_qkv_fwd.cu`` (K1, bf16), ``mha_qkv_fwd.cu:fp32`` (K1,
-fp32), ``mha_qkv_bwd.cu:fp32`` (K2, fp32) or ``int8_attention.cu`` (K4);
-VARIANTS.json maps a variant's name to a list of [old, new] text
-replacements (default: ``RECORDED``, the variants PERF.md reports).
-Each variant is a copy of the target's source under ``csrc/`` (with the
-shared headers) where each ``old`` (which must occur) is replaced by
-``new``, built with ``ops/build.py``'s nvcc flags under
-``build/kernel_variants/``, held to the plain version and timed with
-``tools/profiling.py::time_ms`` at the kernel's main shapes (K1 and K2:
-the ViT-B/16 vision shapes at batch 1, 8, 32 (and 64 for bf16 K1) and the
-CoOp text shape; K4: every variant at the probe's shape and at batch 8).
-Prints one JSON line per shape: for each build its ms and its max
-|kernel - plain| (K4: as a multiple of ``k4_tolerance``). Needs a card.
+fp32), ``mha_qkv_bwd.cu`` (K2, bf16), ``mha_qkv_bwd.cu:fp32`` (K2,
+fp32), ``int8_matmul.cu`` (K3) or ``int8_attention.cu`` (K4); a target
+``NAME@COMMIT`` holds the variants of that commit's source, to be built
+from a checkout of it with ``--csrc``. VARIANTS.json maps a variant's
+name to a list of [old, new] text replacements (default: ``RECORDED``,
+the variants PERF.md reports). Each variant is a copy of the target's
+source under ``csrc/`` (or ``--csrc DIR``), with the shared headers,
+where each ``old`` (which must occur) is replaced by ``new``, built with
+``ops/build.py``'s nvcc flags under ``build/kernel_variants/``, held to
+the plain version and timed with ``tools/profiling.py::time_ms`` at the
+kernel's main shapes (K1 and K2: the ViT-B/16 vision shapes at batch 1,
+8, 32 (and 64 for bf16 K1) and the CoOp text shape (and L 16 for bf16
+K2); K3: the serve path's main products, int32 and rescaled; K4: every
+variant at the probe's shape and at batch 8). ``--against DIR`` adds the
+unchanged source of another tree (a checkout of the parent commit) as
+one more build, named ``against``. Prints one JSON line per shape: for
+each build its ms and its max |kernel - plain| (K4: as a multiple of
+``k4_tolerance``). Needs a card.
 """
 
 from __future__ import annotations
@@ -44,6 +50,10 @@ _ARGTYPES = {
     "int8_attention": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
+# K3's one entry point at commit 3c33573 (the mma.sync kernel: no split,
+# no rescale); the current ones are ops/int8_matmul.py's ARGTYPES
+_K3_ARGTYPES_3C33573 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p]
 
 
 def _emit(**fields):
@@ -83,6 +93,41 @@ RECORDED = {
         "no_mask": [["      mk[r][j] = row < L && col < L ? __ldg(mask + at) "
                      ": 0.f;", "      mk[r][j] = 0.f;"]],
     },
+    "mha_qkv_bwd.cu": {
+        # route (b): only the first streamed tile is copied
+        "no_loads": [["    if (i + 1 < total) issue(i + 1);  // into tile "
+                      "i - 1's stage", ""],
+                     ["    if (i + 1 < n) issue(i + 1);", ""]],
+        # the copies alone (route (a): the block returns after them)
+        "no_compute": [["    if (!active) continue;",
+                        "    if (!active || L > 0) continue;"],
+                       ["  __syncthreads();\n\n  // this warp's head",
+                        "  __syncthreads();\n  if (L > 0) return;\n"
+                        "  // this warp's head"]],
+        # no mask copies (the tiles keep what shared memory held)
+        "no_mask": [["  load_mask(ms, F::MLD, mask, L, 0, F::LP, 0, F::LP, "
+                     "F::THREADS);", ""],
+                    ["    load_mask(reinterpret_cast<float*>(kt + 2 * "
+                     "T::STREAM), MS, mask, L, q0,\n              T::ROWS, "
+                     "k0, KT, THREADS);", ""],
+                    ["    load_mask(mt, T::MT, mask, L, q0, KT, k_blk, "
+                     "T::ROWS, THREADS);", ""]],
+        # route (a) blocks of two heads at L <= 32 (the mask copied once)
+        "two_heads_a_block": [["constexpr int FUSED_MAX_HEADS = 1;",
+                               "constexpr int FUSED_MAX_HEADS = 2;"]],
+        # route (b) at every L (the text shapes too)
+        "tiled_only": [["constexpr int FUSED_MAX_L = 64;",
+                        "constexpr int FUSED_MAX_L = 0;"]],
+        # expf (the accurate exponential) for __expf
+        "expf": [["__expf(", "expf("]],
+        # one of route (b)'s two kernels alone (the other's launch removed)
+        "dq_only": [["  dkdv<<<grid, NW * 32, T::SMEM_DKDV, stream>>>",
+                     "  if (L < 0) dkdv<<<grid, NW * 32, T::SMEM_DKDV, "
+                     "stream>>>"]],
+        "dkdv_only": [["  dq<<<grid, NW * 32, T::SMEM_DQ, stream>>>",
+                       "  if (L < 0) dq<<<grid, NW * 32, T::SMEM_DQ, "
+                       "stream>>>"]],
+    },
     "mha_qkv_bwd.cu:fp32": {
         "no_loads": [["    if (i + 1 < walk) issue(i + 1);", ""],
                      ["    if (i + 1 < ntiles) issue(i + 1);", ""]],
@@ -100,6 +145,65 @@ RECORDED = {
                        "stream>>>"]],
         "no_mask": [["      mk[r][j] = row < L && col < L ? __ldg(mask + at) "
                      ": 0.f;", "      mk[r][j] = 0.f;"]],
+    },
+    # the mma.sync K2 bf16 and K3 as they were at commit 3c33573 (build
+    # from a checkout of it: --csrc); what bounded them before their
+    # redesign
+    "mha_qkv_bwd.cu@3c33573": {
+        # K/V (dq kernel) and q/g (dk/dv kernel) staged for the first tile
+        # only; the mask tiles still come
+        "no_loads": [["    stage_rows<HD>(ks, kb, stride, k0, L, tid);\n"
+                      "    stage_rows<HD>(vs, vb, stride, k0, L, tid);",
+                      "    if (k0 == 0) {\n"
+                      "    stage_rows<HD>(ks, kb, stride, k0, L, tid);\n"
+                      "    stage_rows<HD>(vs, vb, stride, k0, L, tid);}"],
+                     ["    stage_rows<HD>(qs, qb, stride, q0, L, tid);\n"
+                      "    stage_rows<HD>(gs, gb, D, q0, L, tid);",
+                      "    if (q0 == 0) {\n"
+                      "    stage_rows<HD>(qs, qb, stride, q0, L, tid);\n"
+                      "    stage_rows<HD>(gs, gb, D, q0, L, tid);}"]],
+        # the staging alone: every product and softmax skipped
+        "no_compute": [["    if (!active) continue;",
+                        "    if (!active || L > 0) continue;"]],
+        "no_mask": [["      ms[r][c] = (row < L && key < L) ? "
+                     "mask[(long long)row * L + key] : 0.f;",
+                     "      ms[r][c] = 0.f;"],
+                    ["      mt[c][r] = (row < L && key < L) ? "
+                     "mask[(long long)row * L + key] : 0.f;",
+                     "      mt[c][r] = 0.f;"]],
+    },
+    "int8_matmul.cu@3c33573": {
+        # tile 0 reused for every K step (no global loads past it)
+        "no_loads": [["    if (kt + 1 < n_k)\n      load_tile(x, w, M, N, "
+                      "K, m0, n0, (kt + 1) * BK, vec_a, vec_b, t);", ""]],
+        # no mma (a runtime condition that never holds keeps the code)
+        "no_compute": [["for (int ni = 0; ni < 4; ++ni) mma_s8(",
+                        "for (int ni = 0; ni < 4 && K < 0; ++ni) mma_s8("]],
+        "no_store": [["        if (row >= M) continue;",
+                      "        if (row >= M || N > 0) continue;"]],
+    },
+    "int8_matmul.cu": {
+        # only the ring's first STAGES - 1 k tiles are copied
+        "no_loads": [["    if (i + STAGES - 1 < nk) issue(i + STAGES - 1);"
+                      "  // into i - 1's stage", ""]],
+        # no wgmma (a runtime condition that never holds keeps the code)
+        "no_compute": [["      wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk, "
+                        "1);", "      if (K < 0) wgmma_tile<BN>(acc, da + 2 "
+                        "* kk, db + 2 * kk, 1);"]],
+        # the staged tile never leaves (split K still adds it)
+        "no_store": [["      if (row >= M) break;",
+                      "      if (row >= M || N > 0) break;"]],
+        # plain stores for the streaming (evict-first) ones
+        "plain_stores": [["__stcs(reinterpret_cast<int4*>(o), v);",
+                          "*reinterpret_cast<int4*>(o) = v;"],
+                         ["__stcs(reinterpret_cast<uint2*>(o),",
+                          "(*reinterpret_cast<uint2*>(o)) = ("]],
+        # 128 x 256 block tiles (one block an SM)
+        "tile_n_256": [["constexpr int TILE_N = 128;",
+                        "constexpr int TILE_N = 256;"]],
+        # a fourth ring stage (one block an SM)
+        "stages_4": [["constexpr int STAGES = 3;",
+                      "constexpr int STAGES = 4;"]],
     },
     "int8_attention.cu": {
         "no_loads": [["    if (i + STAGES - 1 < total) issue(i + "
@@ -123,20 +227,31 @@ RECORDED = {
 
 
 def source_file(target: str) -> str:
-    """The file under csrc/ of a target (``mha_qkv_fwd.cu:fp32`` ->
-    ``mha_qkv_fwd.cu``)."""
-    return target.split(":")[0]
+    """The file under csrc/ of a target (``mha_qkv_fwd.cu:fp32`` and
+    ``mha_qkv_fwd.cu@3c33573`` -> ``mha_qkv_fwd.cu``)."""
+    return target.split("@")[0].split(":")[0]
 
 
-def apply_variants(target: str, variants: dict) -> dict:
-    """name -> {file name: text}: the target's source and the shared
-    headers (``csrc/*.cuh``) with the variant's replacements; the
-    unchanged files are "source". Each ``old`` is replaced in every file
-    that holds it; raises if none does."""
+def _sources(target: str, csrc: str) -> dict:
+    """{file name: text}: the target's source and the shared headers
+    (``*.cuh``) of the tree ``csrc``."""
     files = [source_file(target)] + sorted(
-        f for f in os.listdir(build.CSRC_DIR) if f.endswith(".cuh"))
-    texts = {f: open(osp.join(build.CSRC_DIR, f)).read() for f in files}
+        f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    return {f: open(osp.join(csrc, f)).read() for f in files}
+
+
+def apply_variants(target: str, variants: dict, csrc: str = None,
+                   against: str = None) -> dict:
+    """name -> {file name: text}: the target's source and the shared
+    headers (``csrc/*.cuh``, or those of ``csrc``) with the variant's
+    replacements; the unchanged files are "source", and ``against``'s
+    unchanged files "against". Each ``old`` is replaced in every file
+    that holds it; raises if none does."""
+    texts = _sources(target, csrc or build.CSRC_DIR)
+    files = sorted(texts)
     out = {"source": texts}
+    if against:
+        out["against"] = _sources(target, against)
     for name, edits in variants.items():
         variant = dict(texts)
         for old, new in edits:
@@ -149,11 +264,13 @@ def apply_variants(target: str, variants: dict) -> dict:
     return out
 
 
-def compile_variants(target: str, variants: dict) -> dict:
+def compile_variants(target: str, variants: dict, csrc: str = None,
+                     against: str = None) -> dict:
     """name -> ctypes library, one nvcc each, all started together."""
     source = source_file(target)
     procs = {}
-    for name, files in apply_variants(target, variants).items():
+    for name, files in apply_variants(target, variants, csrc,
+                                      against).items():
         d = osp.join(OUT_DIR, name)
         os.makedirs(d, exist_ok=True)
         for f, text in files.items():
@@ -171,7 +288,15 @@ def compile_variants(target: str, variants: dict) -> dict:
         _emit(built=name, ptxas=[ln.strip() for ln in log.splitlines()
                                  if "registers" in ln or "spill" in ln])
         libs[name] = ctypes.CDLL(lib)
-        getattr(libs[name], source[:-3]).argtypes = _ARGTYPES[source[:-3]]
+        if source != "int8_matmul.cu":
+            getattr(libs[name], source[:-3]).argtypes = \
+                _ARGTYPES[source[:-3]]
+        elif hasattr(libs[name], "int8_matmul_rescaled"):
+            from ..ops.int8_matmul import ARGTYPES
+            for fn, types in ARGTYPES.items():
+                getattr(libs[name], fn).argtypes = types
+        else:
+            libs[name].int8_matmul.argtypes = _K3_ARGTYPES_3C33573
     return libs
 
 
@@ -214,14 +339,73 @@ VISION_TEXT = [(32, 208, 768, 12, 197, False), (1, 208, 768, 12, 197, False),
                (8, 208, 768, 12, 197, False), (50, 32, 512, 8, 25, True)]
 
 
-def run(target: str, variants: dict) -> None:
+# K3's main products on the serve path (M, K, N): the 32-row bucket's w_fc
+# (the most bytes of the 120-launch ties), the batch-64 wqkv, the 1-row
+# bucket's w_proj (split K) and the batch-1 projection
+K3_SHAPES = [(6656, 768, 3072), (13312, 768, 2304), (208, 3072, 768),
+             (1, 768, 512)]
+
+
+def _k3_calls(lib, x, w, wt, xs, ws):
+    """(int32 call, bf16 rescaled call) of one K3 library: the kernel of
+    commit 3c33573 (w [K, N]; the rescale as PyTorch ops after it) or the
+    current one (wt [N, K], through ``ops/int8_matmul.py``'s launch)."""
+    from ..ops import int8_matmul as k3
+    M, K = x.shape
+    N = w.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "int8_matmul_rescaled"):
+        return (lambda: k3.launch(lib, x, wt),
+                lambda: k3.launch(lib, x, wt, xs, ws, torch.bfloat16))
+
+    def int32():
+        out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+        err = lib.int8_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), M,
+                              N, K, stream)
+        if err != 0:
+            raise RuntimeError(f"cudaError_t {err}")
+        return out
+    return int32, lambda: (int32().float() * xs * ws).to(torch.bfloat16)
+
+
+def _run_k3(libs, dev, gen, flush):
+    from ..ops.int8_matmul import int8_matmul_reference
+    for M, K, N in K3_SHAPES:
+        x = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        wt = w.t().contiguous()
+        xs = torch.rand((M, 1), generator=gen, device=dev) + 0.5
+        ws = torch.rand((N,), generator=gen, device=dev) * 1e-3
+        want = int8_matmul_reference(x, w)
+        want_r = (want.float() * xs * ws).to(torch.bfloat16)
+        rows = {"int32": {}, "rescaled_bf16": {}}
+        for name, lib in libs.items():
+            for route, call, ref in zip(rows, _k3_calls(lib, x, w, wt, xs,
+                                                        ws), (want, want_r)):
+                try:
+                    got = call()
+                    torch.cuda.synchronize()
+                    err = float((got.float() - ref.float()).abs().max())
+                    rows[route][name] = [time_ms(call, flush), err]
+                except RuntimeError as e:  # the context is lost: say where
+                    raise RuntimeError(f"{name}, {route}, "
+                                       f"{[M, K, N]}") from e
+        for route, row in rows.items():
+            _emit(kernel="int8_matmul", route=route, mkn=[M, K, N], **row)
+
+
+def run(target: str, variants: dict, csrc: str = None,
+        against: str = None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_variants times kernels on a card")
     from ..ops.int8_attention import VARIANTS, int8_attention_reference
     from ..ops.mha_qkv import mha_qkv_bwd_reference, mha_qkv_reference
     from ..probe_int8_attention import probe_inputs
     _emit(device=nvidia_smi())
-    libs = compile_variants(target, variants)
+    libs = compile_variants(target, variants, csrc, against)
+    target = target.split("@")[0]
     dev = torch.device("cuda", 0)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -239,6 +423,22 @@ def run(target: str, variants: dict) -> None:
                   **_time_all(libs, "mha_qkv_fwd", lambda o: (
                       qkv.data_ptr(), mask.data_ptr(), o.data_ptr(), B, L, D,
                       H, int(not fp32)), out, want, 1.0, flush))
+    elif target == "mha_qkv_bwd.cu":
+        # bf16: the error as a multiple of chip_smoke.py's TOL_BWD
+        for B, L, D, H, qkv, mask in _attention_cases(
+                dev, gen, torch.bfloat16,
+                VISION_TEXT + [(50, 16, 512, 8, 14, True)]):
+            g = torch.randn((B, L, D), generator=gen, device=dev).to(qkv.dtype)
+            out = torch.empty_like(qkv)
+            stats = torch.empty((3, B, H, L), device=dev)
+            want = mha_qkv_bwd_reference(qkv, mask, g, H).float()
+            _emit(kernel="mha_qkv_bwd", dtype="bfloat16", qkv=[B, L, 3 * D],
+                  heads=H, **_time_all(libs, "mha_qkv_bwd", lambda o: (
+                      qkv.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                      o.data_ptr(), stats.data_ptr(), B, L, D, H, 1), out,
+                      want, 2e-2 + 2e-2 * want.abs(), flush))
+    elif target == "int8_matmul.cu":
+        _run_k3(libs, dev, gen, flush)
     elif target == "mha_qkv_bwd.cu:fp32":
         for B, L, D, H, qkv, mask in _attention_cases(
                 dev, gen, torch.float32, VISION_TEXT):
@@ -274,12 +474,19 @@ def run(target: str, variants: dict) -> None:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if len(argv) not in (1, 2) or argv[0] not in RECORDED:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    dirs = {}
+    for flag in ("--csrc", "--against"):
+        if flag in argv:
+            i = argv.index(flag)
+            dirs[flag[2:]] = argv[i + 1] if i + 1 < len(argv) else None
+            del argv[i:i + 2]
+    if (len(argv) not in (1, 2) or argv[0] not in RECORDED
+            or None in dirs.values()):
         print(__doc__, file=sys.stderr)
         return 2
     run(argv[0], json.load(open(argv[1])) if len(argv) == 2
-        else RECORDED[argv[0]])
+        else RECORDED[argv[0]], **dirs)
     return 0
 
 

@@ -100,6 +100,109 @@ def test_w8a8_matmul_bit_equal_to_jax(lead):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale", ["per_row", "static"])
+def test_rescaled_int8_matmul_cpu_path_bit_equal_to_jax(scale, dtype):
+    """``rescaled_int8_matmul`` on CPU tensors (the plain rescale the
+    card's epilogue is held to): per-row scales against JAX
+    ``w8a8_matmul`` (interpret-mode kernel), a 0-d static scale against
+    JAX ``qdot``'s static w8a8 path; bit for bit, in x's dtype."""
+    from clip_calibration_tpu.ops.pallas_int8_matmul import (
+        w8a8_matmul as jax_w8a8)
+    from clip_calibration_tpu_torch.ops.int8_matmul import (
+        rescaled_int8_matmul)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3, 20, 64)).astype(np.float32)
+    w = rng.normal(size=(64, 48)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jx, tx = jnp.asarray(x, jdt), _t(x).to(tdt)
+    jw, tw = JQ.quantize_int8(jnp.asarray(w)), TQ.quantize_int8(_t(w))
+    if scale == "per_row":
+        want = jax_w8a8(jx, jw["int8"], jw["scale"], interpret=True)
+        xq, xs = TQ.quantize_activations_int8(tx)
+    else:
+        act = np.float32(np.abs(x).max() * 0.6) / np.float32(127.0)
+        want = JQ.qdot(jx, dict(jw, act_scale=jnp.float32(act)), "w8a8")
+        xs = torch.tensor(act)
+        xq = TQ._to_int8(tx.float(), xs)
+    got = rescaled_int8_matmul(xq, xs, tw.int8, tw.scale, tdt, tw.kmajor)
+    assert got.dtype == tdt and tuple(got.shape) == (3, 20, 48)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("case", ["state_dict", "flat_params", "npz", "to"])
+def test_kmajor_copy_is_derived_and_in_no_file(towers, tmp_path, case):
+    """Every ``QuantizedWeight`` of a quantized tower keeps ``int8``
+    transposed and contiguous as ``kmajor`` (K3's weight layout, made
+    once); it follows ``.to()`` but is in no state dict, flat-params dict
+    or saved npz, whose layout stays [K, N]."""
+    _, model, x = towers
+    qm = TQ.quantize_clip_params(model, towers=("visual", "text"))
+    qm = TQ.attach_act_scales(qm, TQ.calibrate_image_act_scales(
+        qm, TM.PRESETS["ViT-Test"], _t(x)))
+    holders = [m for m in qm.modules() if TQ.is_quantized(m)]
+    cfg = TM.PRESETS["ViT-Test"]  # patch, proj, text proj, 4 a block
+    assert len(holders) == 3 + 4 * (cfg.vision_layers
+                                    + cfg.transformer_layers)
+    for q in holders:
+        assert q.kmajor.is_contiguous()
+        assert torch.equal(q.kmajor, q.int8.t())
+    if case == "state_dict":
+        assert not [k for k in qm.state_dict() if "kmajor" in k]
+        assert set(holders[0].state_dict()) == {"int8", "scale",
+                                                "act_scale"}
+    elif case == "flat_params":
+        flat = TW.flat_params(qm)
+        assert not [k for k in flat if "kmajor" in k]
+        assert any(k.endswith("/int8") for k in flat)
+    elif case == "npz":
+        path = str(tmp_path / "q.npz")
+        TW.save_params(path, qm)
+        keys = list(np.load(path).files)
+        assert not [k for k in keys if "kmajor" in k]
+        assert any(k.endswith("/int8") for k in keys)
+    else:
+        moved = TQ.quantize_int8(_t(np.ones((8, 4), np.float32))).to("meta")
+        assert moved.kmajor.device.type == "meta"
+        assert tuple(moved.kmajor.shape) == (4, 8)
+
+
+def test_k3_launcher_rules():
+    """The split of K (``k3_split``) fills the 132 SMs only where the
+    output tiles leave them idle, never past one split per 128-byte k
+    tile; ``k3_route`` names the route; the Python tile sizes are the
+    CUDA launcher's."""
+    from clip_calibration_tpu_torch.ops import int8_matmul as K3
+    assert K3.k3_split(6656, 3072, 768) == 1       # 52 x 24 tiles
+    assert K3.k3_split(13312, 2304, 768) == 1
+    assert K3.k3_split(208, 768, 3072) == 11       # w_proj: 12 tiles
+    assert K3.k3_split(208, 2304, 768) == 4        # wqkv: 36 tiles
+    assert K3.k3_split(1, 512, 768) == 6           # proj: 4 tiles, 6 k
+    assert K3.k3_split(8, 8, 8) == 1               # one k tile
+    assert K3.k3_route(208, 768, 3072, True) == "split_k"
+    assert K3.k3_route(6656, 3072, 768, True) == "rescaled"
+    assert K3.k3_route(6656, 3072, 768, False) == "int32"
+    src = open(osp.join(REPO, "clip_calibration_tpu_torch", "csrc",
+                        "int8_matmul.cu")).read()
+    for name, value in (("BM", K3.TILE_M), ("TILE_N", K3.TILE_N),
+                        ("BK", K3.TILE_K), ("SMS", K3.SMS)):
+        assert f"constexpr int {name} = {value};" in src, name
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "noncontiguous"])
+def test_k3_rejects_a_wrong_kmajor_copy(case):
+    """A K-major copy that is not w's raises before any launch."""
+    from clip_calibration_tpu_torch.ops.int8_matmul import kernel_product
+    x = torch.zeros((4, 16), dtype=torch.int8)
+    w = torch.zeros((16, 8), dtype=torch.int8)
+    bad = {"shape": torch.zeros((16, 8), dtype=torch.int8),
+           "dtype": torch.zeros((8, 16)),
+           "noncontiguous": torch.zeros((16, 8), dtype=torch.int8).t()}
+    with pytest.raises(ValueError, match="K-major"):
+        kernel_product(x, w, bad[case])
+
+
 # ---------------------------------------------------------- quantizers
 
 def test_quantize_int8_bit_equal_to_jax():

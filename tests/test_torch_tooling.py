@@ -187,8 +187,8 @@ def test_build_is_stale_when_a_shared_header_changes(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("source", ["mha_qkv_fwd.cu", "mha_qkv_fwd.cu:fp32",
-                                    "mha_qkv_bwd.cu:fp32",
-                                    "int8_attention.cu"])
+                                    "mha_qkv_bwd.cu", "mha_qkv_bwd.cu:fp32",
+                                    "int8_matmul.cu", "int8_attention.cu"])
 def test_kernel_variants_apply_to_the_sources(source):
     """Every recorded variant of ``tools/kernel_variants.py`` still finds
     the text it replaces in the kernel's source (they time on the card

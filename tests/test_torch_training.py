@@ -110,6 +110,46 @@ def test_plain_k2_bf16_matches_jax_kernel():
                                rtol=2e-2, atol=2e-2)
 
 
+# both sides of the bf16 K2's route switch on the card (one fused kernel
+# at L <= 64, the dq and dk/dv pair above it; csrc/mha_qkv_bwd.cu), at
+# head dims 16, 32 and 64: (L, d, mask kind, real length)
+K2_ROUTE_EDGES = [(1, 64, "none", None), (16, 16, "causal", None),
+                  (16, 64, "pad", 11), (64, 32, "causal", None),
+                  (64, 64, "causal+pad", 50), (65, 64, "causal", None),
+                  (65, 16, "pad", 60), (65, 32, "none", None)]
+
+
+@pytest.mark.parametrize("L,d,kind,real", K2_ROUTE_EDGES,
+                         ids=[f"{L}-d{d}-{k}" for L, d, k, _ in
+                              K2_ROUTE_EDGES])
+def test_plain_k2_at_the_route_switch_matches_jax_kernel(L, d, kind, real):
+    """K2's plain version against the interpret-mode Pallas backward on
+    bf16-rounded inputs (the values the bf16 kernels see), compared in
+    fp32 at the JAX suite's gradient tolerances; the route names the
+    launcher's rule."""
+    from clip_calibration_tpu_torch.ops.mha_qkv import bwd_route
+    B, H = 2, 4
+    qkv, g = (_t(a).bfloat16().float().numpy()
+              for a in _inputs(11, B, L, H * d))
+    mask = _mask(L, kind, real)
+    want, _ = PA._bwd(H, True, (jnp.asarray(qkv), jnp.asarray(mask)),
+                      jnp.asarray(g))
+    got = mha_qkv_bwd_reference(_t(qkv), _t(mask), _t(g), H)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    assert bwd_route(L, torch.bfloat16) == ("fused_L64" if L <= 64
+                                            else "tiled")
+    assert bwd_route(L, torch.float32) == "tiled"
+
+
+def test_bwd_route_rule_is_the_launchers():
+    from clip_calibration_tpu_torch.ops import mha_qkv as K
+    src = open(osp.join(REPO, "clip_calibration_tpu_torch", "csrc",
+                        "mha_qkv_bwd.cu")).read()
+    assert f"constexpr int FUSED_MAX_L = {K.BWD_FUSED_MAX_L};" in src
+
+
 def test_plain_k2_padded_keys_get_zero_gradient():
     B, H, D, L, real = 2, 4, 64, 32, 20
     qkv, g = _inputs(3, B, L, D)
