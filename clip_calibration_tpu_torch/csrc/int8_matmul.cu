@@ -32,9 +32,9 @@
 //   transposition in the kernel.
 //
 // Unlike the TPU kernel, whose grid walks K in order with a VMEM-resident
-// int32 accumulator, a block owns a 128 x BN output tile and loops over
+// int32 accumulator, a block owns a 128 x 128 output tile and loops over
 // K itself. Two warpgroups of 4 warps each own 64 rows and
-// issue wgmma.mma_async m64nBNk32 s8 (Hopper's warpgroup tensor-core
+// issue wgmma.mma_async m64n128k32 s8 (Hopper's warpgroup tensor-core
 // product; int8 wgmma reads both operands K-major from shared memory). K
 // arrives in 128-byte tiles (one 128-byte swizzled row per M or N index,
 // the layout the wgmma descriptor names) through a three-stage cp.async
@@ -64,7 +64,11 @@ namespace {
 
 using namespace attn_tile;
 
+// a block tile is 128 x 128 so that two blocks share an SM and one's
+// stores overlap the other's products (128 x 256 tiles, one block an SM,
+// were slower at every measured shape: PERF.md)
 constexpr int BM = 128;       // rows of a block tile: two warpgroups of 64
+constexpr int BN = 128;       // columns of a block tile
 constexpr int BK = 128;       // k of a ring stage, bytes: one swizzled row
 constexpr int STAGES = 3;     // ring depth: tile i + 2 copies while i runs
 constexpr int THREADS = 256;  // two warpgroups
@@ -76,16 +80,12 @@ constexpr int EPI_ATOMIC = 1;  // int32 out, added (a split of K)
 constexpr int EPI_F32 = 2;     // rescaled, fp32 out
 constexpr int EPI_BF16 = 3;    // rescaled, bf16 out
 
-template <int BN>
-struct Cfg {
-  static constexpr int STAGE = (BM + BN) * BK;  // bytes: A then B
-  static constexpr int RING = STAGES * STAGE;
-  static constexpr int OUT_LD = BN + 8;  // int32 per staged output row
-  static constexpr int OUT = BM * OUT_LD * 4;
-  // + 1 KB: the swizzle atoms start at a 1024-byte boundary
-  static constexpr int SMEM = (RING > OUT ? RING : OUT) + 1024;
-  static constexpr int MIN_BLOCKS = BN == 128 ? 2 : 1;  // blocks an SM
-};
+constexpr int STAGE = (BM + BN) * BK;  // bytes: A then B
+constexpr int RING = STAGES * STAGE;
+constexpr int OUT_LD = BN + 8;  // int32 per staged output row
+constexpr int OUT_BYTES = BM * OUT_LD * 4;
+// + 1 KB: the swizzle atoms start at a 1024-byte boundary
+constexpr int SMEM = (RING > OUT_BYTES ? RING : OUT_BYTES) + 1024;
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -156,78 +156,6 @@ __device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (+)= A [64 x 32] B [256 x 32]^T, s8 in, s32 sums: A and B K-major in
-// 128-byte swizzled shared rows (descriptors da, db); d is added to
-// unless scale_d is 0
-__device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
-        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
-        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
-        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
-        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
-        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
-        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
-        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t da,
-                                           uint64_t db, int scale_d) {
-  if constexpr (BN == 128)
-    wgmma_n128(d, da, db, scale_d);
-  else
-    wgmma_n256(d, da, db, scale_d);
-}
-
 // rows [row0, row0 + ROWS) x k bytes [k0, k0 + BK) of a K-major int8
 // matrix (row stride K bytes) into 128-byte swizzled rows at dst: 16-byte
 // chunk c of row r at r * 128 + (c ^ (r % 8)) * 16. Rows at or past
@@ -246,13 +174,12 @@ __device__ __forceinline__ void load_rows(unsigned char* dst,
   }
 }
 
-template <int BN, int EPI>
-__global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 2)
     int8_matmul_kernel(const int8_t* __restrict__ x,
                        const int8_t* __restrict__ wt, void* __restrict__ out,
                        const float* __restrict__ xs, int xs_per_row,
                        const float* __restrict__ ws, int M, int N, int K) {
-  using C = Cfg<BN>;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes of shared address
   const uint32_t raw =
@@ -268,7 +195,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
   const int nk = (int)((long long)(blockIdx.z + 1) * nk_all / gridDim.z) - kt0;
 
   auto issue = [&](int i) {  // k tile kt0 + i into stage i % STAGES
-    unsigned char* st = smem + (i % STAGES) * C::STAGE;
+    unsigned char* st = smem + (i % STAGES) * STAGE;
     const int k0 = (kt0 + i) * BK;
     load_rows<BM>(st, x, M, K, m0, k0);
     load_rows<BN>(st + BM * BK, wt, N, K, n0, k0);
@@ -289,14 +216,14 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
     __syncthreads();  // everyone's; and tile i - 1's products are done
     if (i + STAGES - 1 < nk) issue(i + STAGES - 1);  // into i - 1's stage
     cp_async_commit();
-    const unsigned char* st = smem + (i % STAGES) * C::STAGE;
+    const unsigned char* st = smem + (i % STAGES) * STAGE;
     const uint64_t da = smem_desc(st + wg * 64 * BK);
     const uint64_t db = smem_desc(st + BM * BK);
     wgmma_fence();
     fence_acc(acc);
 #pragma unroll
     for (int kk = 0; kk < BK / 32; ++kk)  // 32 bytes: descriptor + 2
-      wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk, 1);
+      wgmma_n128(acc, da + 2 * kk, db + 2 * kk, 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_acc(acc);
@@ -313,9 +240,9 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
     const int col = 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      *reinterpret_cast<int2*>(so + row * C::OUT_LD + 8 * j + col) =
+      *reinterpret_cast<int2*>(so + row * OUT_LD + 8 * j + col) =
           make_int2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<int2*>(so + (row + 8) * C::OUT_LD + 8 * j + col) =
+      *reinterpret_cast<int2*>(so + (row + 8) * OUT_LD + 8 * j + col) =
           make_int2(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
@@ -327,7 +254,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
     for (int i = tid; i < BM * BN; i += THREADS) {
       const int r = i / BN, c = i % BN, row = m0 + r, col = n0 + c;
       if (row < M && col < N)
-        atomicAdd(o + (long long)row * N + col, so[r * C::OUT_LD + c]);
+        atomicAdd(o + (long long)row * N + col, so[r * OUT_LD + c]);
     }
     return;
   }
@@ -352,7 +279,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MIN_BLOCKS)
     for (int r = warp; r < BM; r += THREADS / 32) {
       const int row = m0 + r;
       if (row >= M) break;
-      const int4 v = *reinterpret_cast<const int4*>(so + r * C::OUT_LD + c);
+      const int4 v = *reinterpret_cast<const int4*>(so + r * OUT_LD + c);
       const long long at = (long long)row * N + col;
       const int vv[4] = {v.x, v.y, v.z, v.w};
       if constexpr (EPI == EPI_INT32) {
@@ -421,91 +348,110 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// output columns a block tile covers: 128 (two blocks an SM, so one's
-// stores overlap the other's products; 128 x 256 tiles, one block an SM,
-// were slower at every measured shape: PERF.md)
-constexpr int TILE_N = 128;
-
-template <int BN, int EPI>
+template <int EPI>
 cudaError_t launch(const void* x, const void* wt, void* out, const float* xs,
                    int xs_per_row, const float* ws, int M, int N, int K,
                    int split, cudaStream_t stream) {
   static size_t allowed = 0;
-  auto kernel = int8_matmul_kernel<BN, EPI>;
-  const cudaError_t err = allow_smem(kernel, Cfg<BN>::SMEM, allowed);
+  auto kernel = int8_matmul_kernel<EPI>;
+  const cudaError_t err = allow_smem(kernel, SMEM, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split);
-  kernel<<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(
+  kernel<<<grid, THREADS, SMEM, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt), out, xs,
       xs_per_row, ws, M, N, K);
   return cudaGetLastError();
 }
 
-bool bad_shape(const void* x, const void* wt, int M, int N, int K,
-               int split) {
+// blocks one output tile's K is split across: 1 while the tiles alone
+// fill the SMs; else as many as fill them, at most one per k tile (the
+// 1-row serving bucket, M 208: 12 to 48 tiles)
+int split_of(int M, int N, int K) {
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (tiles >= SMS) return 1;
+  const int fill = (int)((SMS + tiles - 1) / tiles), nk = (K + BK - 1) / BK;
+  return fill < nk ? fill : nk;
+}
+
+// the split product: `split` blocks a tile add into the zeroed int32 acc
+cudaError_t launch_split(const void* x, const void* wt, int32_t* acc, int M,
+                         int N, int K, int split, cudaStream_t stream) {
+  const cudaError_t err =
+      cudaMemsetAsync(acc, 0, (size_t)M * N * sizeof(int32_t), stream);
+  if (err != cudaSuccess) return err;
+  return launch<EPI_ATOMIC>(x, wt, acc, nullptr, 0, nullptr, M, N, K, split,
+                            stream);
+}
+
+cudaError_t launch_rescale(const int32_t* acc, const float* xs,
+                           int xs_per_row, const float* ws, void* out,
+                           bool bf16, int M, int N, cudaStream_t stream) {
+  const long long want = ((long long)M * ((N + 3) / 4) + 255) / 256;
+  const int blocks = (int)(want < 4 * SMS ? want : 4 * SMS);
+  if (bf16)
+    int8_rescale_kernel<true><<<blocks, 256, 0, stream>>>(acc, xs, xs_per_row,
+                                                          ws, out, M, N);
+  else
+    int8_rescale_kernel<false><<<blocks, 256, 0, stream>>>(
+        acc, xs, xs_per_row, ws, out, M, N);
+  return cudaGetLastError();
+}
+
+bool bad_shape(const void* x, const void* wt, int M, int N, int K) {
   return M < 1 || N < 1 || K < 1 || K % 16 != 0 || K >= 131072 ||
-         (M + BM - 1) / BM > 65535 || split < 1 ||
-         split > (K + BK - 1) / BK || split > 65535 ||
+         (M + BM - 1) / BM > 65535 ||
          reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
          reinterpret_cast<uintptr_t>(wt) % 16 != 0;
 }
 
 }  // namespace
 
+// The split of K the launcher takes for an [M, K] x [K, N] product (K a
+// multiple of 16): 1, or the blocks per output tile that add into an
+// int32 product; a rescaled product that splits needs int32 scratch.
+extern "C" int int8_matmul_split(int M, int N, int K) {
+  return split_of(M, N, K);
+}
+
 // out [M, N] int32 = x [M, K] int8 @ wt [N, K]^T (wt: the weight K-major),
 // all row-major and contiguous, x and wt 16-byte aligned, K a multiple of
-// 16, on `stream`. split > 1 splits K across that many blocks per output
-// tile, which add into `out`: the caller zeroes it first. Returns
+// 16, on `stream` (a split of K zeroes `out` first). Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes
 // the kernel does not take).
 extern "C" int int8_matmul(const void* x, const void* wt, void* out, int M,
-                           int N, int K, int split, void* stream) {
-  if (bad_shape(x, wt, M, N, K, split)) return cudaErrorInvalidValue;
+                           int N, int K, void* stream) {
+  if (bad_shape(x, wt, M, N, K)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int split = split_of(M, N, K);
   if (split > 1)
-    return launch<TILE_N, EPI_ATOMIC>(x, wt, out, nullptr, 0, nullptr, M, N,
-                                      K, split, s);
-  return launch<TILE_N, EPI_INT32>(x, wt, out, nullptr, 0, nullptr, M, N, K,
-                                   1, s);
+    return launch_split(x, wt, static_cast<int32_t*>(out), M, N, K, split, s);
+  return launch<EPI_INT32>(x, wt, out, nullptr, 0, nullptr, M, N, K, 1, s);
 }
 
 // out [M, N] = dtype(float(x @ wt^T) * xs * ws), dtype 0: float32, 1:
 // bfloat16; xs float32, [M] when xs_per_row, else one value; ws float32
-// [N]; the same shape rules as int8_matmul, no split.
+// [N]; the same shape rules as int8_matmul. Where K is split
+// (int8_matmul_split > 1), the int32 product goes to `acc` (int32 [M, N]
+// scratch; may be null otherwise) and one elementwise kernel rescales it.
 extern "C" int int8_matmul_rescaled(const void* x, const void* wt,
                                     const void* xs, int xs_per_row,
                                     const void* ws, void* out, int dtype,
-                                    int M, int N, int K, void* stream) {
-  if (bad_shape(x, wt, M, N, K, 1) || (dtype != 0 && dtype != 1))
+                                    void* acc, int M, int N, int K,
+                                    void* stream) {
+  if (bad_shape(x, wt, M, N, K) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xsf = static_cast<const float*>(xs);
   const float* wsf = static_cast<const float*>(ws);
+  const int split = split_of(M, N, K);
+  if (split > 1) {
+    if (acc == nullptr) return cudaErrorInvalidValue;
+    int32_t* a = static_cast<int32_t*>(acc);
+    const cudaError_t err = launch_split(x, wt, a, M, N, K, split, s);
+    if (err != cudaSuccess) return err;
+    return launch_rescale(a, xsf, xs_per_row, wsf, out, dtype == 1, M, N, s);
+  }
   if (dtype == 1)
-    return launch<TILE_N, EPI_BF16>(x, wt, out, xsf, xs_per_row, wsf, M, N,
-                                    K, 1, s);
-  return launch<TILE_N, EPI_F32>(x, wt, out, xsf, xs_per_row, wsf, M, N, K,
-                                 1, s);
-}
-
-// out [M, N] = dtype(float(acc) * xs * ws): the rescaled epilogue alone,
-// for an int32 product acc [M, N] made by a split of K.
-extern "C" int int8_rescale(const void* acc, const void* xs, int xs_per_row,
-                            const void* ws, void* out, int dtype, int M,
-                            int N, void* stream) {
-  if (M < 1 || N < 1 || (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
-  const long long want = ((long long)M * ((N + 3) / 4) + 255) / 256;
-  const int blocks = (int)(want < 4 * SMS ? want : 4 * SMS);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* a = static_cast<const int32_t*>(acc);
-  const float* xsf = static_cast<const float*>(xs);
-  const float* wsf = static_cast<const float*>(ws);
-  if (dtype == 1)
-    int8_rescale_kernel<true><<<blocks, 256, 0, s>>>(a, xsf, xs_per_row, wsf,
-                                                     out, M, N);
-  else
-    int8_rescale_kernel<false><<<blocks, 256, 0, s>>>(a, xsf, xs_per_row,
-                                                      wsf, out, M, N);
-  return cudaGetLastError();
+    return launch<EPI_BF16>(x, wt, out, xsf, xs_per_row, wsf, M, N, K, 1, s);
+  return launch<EPI_F32>(x, wt, out, xsf, xs_per_row, wsf, M, N, K, 1, s);
 }

@@ -216,13 +216,13 @@ __device__ __forceinline__ float quad_reduce(float v) {
   return v;
 }
 
-// Route (a), L <= 16 NW: a block of NW warps per head, HPB heads of one
-// batch row (1 as launched: FUSED_MAX_HEADS), holds all of each head's q,
-// k, v, g and the [L, L] mask (once, for every head) in shared memory. Warp w of a head owns query
-// rows 16 w .. for S = q k^T (every key present: a whole-row softmax),
+// Route (a), L <= 16 NW: a block of NW warps per (head, batch row) holds
+// all of the head's q, k, v, g and the [L, L] mask in shared memory. Warp w
+// owns query rows 16 w .. for S = q k^T (every key present: a whole-row
+// softmax),
 // dP = g v^T, ds and dq, and key rows 16 w .. for dk and dv, which read
 // bf16 P and ds back from shared memory transposed.
-template <int HD, int NW, int HPB>
+template <int HD, int NW>
 struct Fused {
   static constexpr int LP = 16 * NW;    // rows and keys, padded
   static constexpr int KS = HD + PAD;   // bf16 per q / k / v / g row
@@ -230,47 +230,38 @@ struct Fused {
   static constexpr int MLD = LP + 4;    // floats per mask row
   static constexpr int TILE = LP * KS;  // bf16 per q / k / v / g tile
   static constexpr int HEAD = 4 * TILE + 2 * LP * PS;  // bf16 per head
-  static constexpr int THREADS = 32 * NW * HPB;
-  static constexpr size_t SMEM = (size_t)HPB * HEAD * 2 + LP * MLD * 4;
+  static constexpr int THREADS = 32 * NW;
+  static constexpr size_t SMEM = (size_t)HEAD * 2 + LP * MLD * 4;
 };
 
-template <int HD, int NW, int HPB>
-__global__ void __launch_bounds__(Fused<HD, NW, HPB>::THREADS)
+template <int HD, int NW>
+__global__ void __launch_bounds__(Fused<HD, NW>::THREADS)
     mha_qkv_bwd_fused_bf16(const __nv_bfloat16* __restrict__ qkv,
                            const float* __restrict__ mask,
                            const __nv_bfloat16* __restrict__ grad,
                            __nv_bfloat16* __restrict__ dqkv, int L, int D,
                            float scale) {
-  using F = Fused<HD, NW, HPB>;
+  using F = Fused<HD, NW>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* heads = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* ms = reinterpret_cast<float*>(heads + HPB * F::HEAD);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* ms = reinterpret_cast<float*>(qs + F::HEAD);
 
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int hh = threadIdx.x / 32 / NW, warp = threadIdx.x / 32 % NW;
-  const int b = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
   const long long stride = 3LL * D;
-  const __nv_bfloat16* base = qkv + (long long)b * L * stride;
-  const __nv_bfloat16* gb = grad + (long long)b * L * D;
-#pragma unroll
-  for (int i = 0; i < HPB; ++i) {  // every thread copies its share
-    __nv_bfloat16* q = heads + i * F::HEAD;
-    const int h = blockIdx.x * HPB + i;
-    load_tile<F::LP, HD>(q, base + h * HD, stride, 0, L, F::THREADS);
-    load_tile<F::LP, HD>(q + F::TILE, base + D + h * HD, stride, 0, L,
-                         F::THREADS);
-    load_tile<F::LP, HD>(q + 2 * F::TILE, base + 2 * D + h * HD, stride, 0,
-                         L, F::THREADS);
-    load_tile<F::LP, HD>(q + 3 * F::TILE, gb + h * HD, D, 0, L, F::THREADS);
-  }
+  const __nv_bfloat16* base = qkv + (long long)b * L * stride + h * HD;
+  load_tile<F::LP, HD>(qs, base, stride, 0, L, F::THREADS);
+  load_tile<F::LP, HD>(qs + F::TILE, base + D, stride, 0, L, F::THREADS);
+  load_tile<F::LP, HD>(qs + 2 * F::TILE, base + 2 * D, stride, 0, L,
+                       F::THREADS);
+  load_tile<F::LP, HD>(qs + 3 * F::TILE, grad + (long long)b * L * D + h * HD,
+                       D, 0, L, F::THREADS);
   load_mask(ms, F::MLD, mask, L, 0, F::LP, 0, F::LP, F::THREADS);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  // this warp's head
-  const int h = blockIdx.x * HPB + hh;
-  __nv_bfloat16* qs = heads + hh * F::HEAD;
   __nv_bfloat16* ks = qs + F::TILE;
   __nv_bfloat16* vs = ks + F::TILE;
   __nv_bfloat16* gs = vs + F::TILE;
@@ -1001,38 +992,20 @@ constexpr int F32_WASTE_PCT = 10;
 
 using bf16 = __nv_bfloat16;
 
-// the most heads a fused block takes: 1. Two (the mask copied once for
-// both, where H is even, the grid still fills the SMs and a head has at
-// most 2 warps) were 3-5% slower at L 16 and 32 on the H100
-// (tools/kernel_variants.py `two_heads_a_block`, PERF.md)
-constexpr int FUSED_MAX_HEADS = 1;
-
-template <int HD, int NW, int HPB>
-cudaError_t launch_fused_heads(const bf16* qkv, const float* mask,
-                               const bf16* grad, bf16* dqkv, int B, int L,
-                               int D, int H, float scale,
-                               cudaStream_t stream) {
-  using F = Fused<HD, NW, HPB>;
-  static size_t allowed = 0;
-  auto kernel = mha_qkv_bwd_fused_bf16<HD, NW, HPB>;
-  const cudaError_t err = allow_smem(kernel, F::SMEM, allowed);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(H / HPB, B), F::THREADS, F::SMEM, stream>>>(
-      qkv, mask, grad, dqkv, L, D, scale);
-  return cudaGetLastError();
-}
-
+// one block per (head, batch row): two heads a block (the mask copied
+// once for both) were 3-5% slower at L 16 and 32 on the H100 (PERF.md)
 template <int HD, int NW>
 cudaError_t launch_fused(const bf16* qkv, const float* mask, const bf16* grad,
                          bf16* dqkv, int B, int L, int D, int H, float scale,
                          cudaStream_t stream) {
-  if constexpr (NW <= 2 && FUSED_MAX_HEADS >= 2) {
-    if (H % 2 == 0 && (long long)(H / 2) * B >= SMS)
-      return launch_fused_heads<HD, NW, 2>(qkv, mask, grad, dqkv, B, L, D,
-                                           H, scale, stream);
-  }
-  return launch_fused_heads<HD, NW, 1>(qkv, mask, grad, dqkv, B, L, D, H,
-                                       scale, stream);
+  using F = Fused<HD, NW>;
+  static size_t allowed = 0;
+  auto kernel = mha_qkv_bwd_fused_bf16<HD, NW>;
+  const cudaError_t err = allow_smem(kernel, F::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), F::THREADS, F::SMEM, stream>>>(qkv, mask, grad, dqkv,
+                                                      L, D, scale);
+  return cudaGetLastError();
 }
 
 template <int HD, int NW>
@@ -1111,6 +1084,12 @@ cudaError_t launch(const void* qkv, const float* mask, const void* grad,
 }
 
 }  // namespace
+
+// 1 where the launcher takes route (a), the fused kernel, for sequence
+// length L and dtype (0: float32, 1: bfloat16), else 0 (route (b)).
+extern "C" int mha_qkv_bwd_fused(int L, int dtype) {
+  return dtype == 1 && L <= FUSED_MAX_L;
+}
 
 // qkv [B, L, 3D] and grad [B, L, D] (dtype 0: float32, 1: bfloat16; both
 // 16-byte aligned), mask [L, L] float32, dqkv [B, L, 3D] of qkv's dtype,

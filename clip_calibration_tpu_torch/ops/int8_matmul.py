@@ -29,9 +29,6 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-#: SMs of an H100 SXM, and the kernel's block tile (rows, columns, k bytes)
-SMS = 132
-TILE_M, TILE_N, TILE_K = 128, 128, 128
 #: the output dtypes the rescaled epilogue writes, as the kernel's codes
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,16 +66,6 @@ def _check(x: torch.Tensor, w: torch.Tensor):
         raise ValueError("x and w must be contiguous")
 
 
-def k3_split(M: int, N: int, K: int) -> int:
-    """Blocks K3 splits K across for one output tile: 1 while the tiles
-    alone fill the card's SMs; else as many as fill them, at most one per
-    128-byte k tile (the 1-row serving bucket, M 208: 12 to 48 tiles)."""
-    tiles = -(-M // TILE_M) * -(-N // TILE_N)
-    if tiles >= SMS:
-        return 1
-    return max(1, min(-(-K // TILE_K), -(-SMS // tiles)))
-
-
 def _operand(t: torch.Tensor, pad: int) -> torch.Tensor:
     """A contiguous 2-D int8 operand as the kernel takes it: 16-byte
     aligned, K (the last axis) zero-padded by ``pad``."""
@@ -93,15 +80,14 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, w_t: torch.Tensor,
     """K3 from the library ``lib`` on CUDA tensors: x [M, K] int8 @ w_t
     [N, K]^T (the weight K-major) -> [M, N] int32, or with ``xs`` (fp32,
     [M] / [M, 1] per row, or 0-d) and ``w_scale`` (fp32, N values) the
-    rescaled product in ``dtype`` (fp32 or bf16). When ``k3_split``
-    splits K, the blocks add into a zeroed int32 output, and a rescaled
-    product then takes the elementwise rescale kernel."""
+    rescaled product in ``dtype`` (fp32 or bf16). Where the launcher
+    splits K (``int8_matmul_split``), a rescaled product goes through an
+    int32 scratch and the elementwise rescale kernel."""
     M, K = x.shape
     N = w_t.shape[0]
     pad = -K % 16
     x, w_t = _operand(x, pad), _operand(w_t, pad)
     K += pad
-    split = k3_split(M, N, K)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rescaled = xs is not None
     if rescaled:
@@ -117,32 +103,27 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, w_t: torch.Tensor,
         xs, w_scale = xs.reshape(-1).contiguous(), \
             w_scale.reshape(-1).contiguous()
         out = torch.empty((M, N), dtype=dtype, device=x.device)
-    if rescaled and split == 1:
+        acc = (torch.empty((M, N), dtype=torch.int32, device=x.device)
+               if lib.int8_matmul_split(M, N, K) > 1 else None)
         err = lib.int8_matmul_rescaled(
             x.data_ptr(), w_t.data_ptr(), xs.data_ptr(), per_row,
-            w_scale.data_ptr(), out.data_ptr(), _OUT_CODES[dtype], M, N, K,
-            stream)
+            w_scale.data_ptr(), out.data_ptr(), _OUT_CODES[dtype],
+            None if acc is None else acc.data_ptr(), M, N, K, stream)
     else:
-        acc = (torch.zeros if split > 1 else torch.empty)(
-            (M, N), dtype=torch.int32, device=x.device)
-        err = lib.int8_matmul(x.data_ptr(), w_t.data_ptr(), acc.data_ptr(),
-                              M, N, K, split, stream)
-        if err == 0 and rescaled:
-            err = lib.int8_rescale(acc.data_ptr(), xs.data_ptr(), per_row,
-                                   w_scale.data_ptr(), out.data_ptr(),
-                                   _OUT_CODES[dtype], M, N, stream)
-        if not rescaled:
-            out = acc
+        out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+        err = lib.int8_matmul(x.data_ptr(), w_t.data_ptr(), out.data_ptr(),
+                              M, N, K, stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul launch failed: cudaError_t {err}")
     return out
 
 
 def k3_route(M: int, N: int, K: int, rescaled: bool) -> str:
-    """The route a product takes: ``split_k`` (K split across blocks,
-    int32 atomics; a rescaled product then the elementwise rescale),
-    ``rescaled`` (the rescale in the epilogue) or ``int32``."""
-    if k3_split(M, N, K + -K % 16) > 1:
+    """The route the launcher takes for a product on the card (it builds
+    the library): ``split_k`` (K split across blocks, int32 atomics; a
+    rescaled product then the elementwise rescale), ``rescaled`` (the
+    rescale in the epilogue) or ``int32``."""
+    if _library().int8_matmul_split(M, N, K + -K % 16) > 1:
         return "split_k"
     return "rescaled" if rescaled else "int32"
 
@@ -224,10 +205,10 @@ def _library() -> ctypes.CDLL:
 #: the C entry points of csrc/int8_matmul.cu (pointers as c_void_p, or
 #: ctypes would cut them to 32-bit ints)
 ARGTYPES = {
-    "int8_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    "int8_matmul_split": [ctypes.c_int] * 3,
+    "int8_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
     "int8_matmul_rescaled": [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "int8_rescale": [ctypes.c_void_p] * 2 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }

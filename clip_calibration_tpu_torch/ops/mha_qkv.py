@@ -19,7 +19,7 @@ kernel applies the 1/sqrt(d) scale to the fp32 scores and normalises once
 at the end (online softmax); the plain version, like the JAX code, scales
 q in the input dtype and normalises P before rounding it to v's dtype. The
 backward kernels round P and ds to the input dtype where the JAX kernel
-does; above ``BWD_FUSED_MAX_L`` they recompute P from stored row
+does; on ``bwd_route``'s tiled route they recompute P from stored row
 statistics. In fp32 kernel and plain version agree to summation order; in
 bf16 they differ by bf16 rounding (tolerances in ``chip_smoke.py``).
 """
@@ -85,17 +85,13 @@ def mha_qkv_bwd_reference(qkv: torch.Tensor, mask: torch.Tensor,
                      dim=-1).to(qkv.dtype)
 
 
-#: the longest L at which the bf16 K2 runs as one fused kernel per (head,
-#: batch row) (``csrc/mha_qkv_bwd.cu`` route (a); ``FUSED_MAX_L`` there)
-BWD_FUSED_MAX_L = 64
-
-
 def bwd_route(L: int, dtype) -> str:
-    """The route K2's launcher takes: ``fused_L64`` (bf16 at L <=
-    ``BWD_FUSED_MAX_L``: one kernel, whole rows in shared memory) or
-    ``tiled`` (the dq and dk/dv kernels; fp32 at every L)."""
-    return ("fused_L64" if dtype == torch.bfloat16 and L <= BWD_FUSED_MAX_L
-            else "tiled")
+    """The route K2's launcher takes on the card (it builds the library):
+    ``fused_L64`` (bf16 at L <= 64: one kernel, whole rows in shared
+    memory) or ``tiled`` (the dq and dk/dv kernels; fp32 at every L)."""
+    fused = _library("mha_qkv_bwd").mha_qkv_bwd_fused(L,
+                                                      _DTYPE_CODES[dtype])
+    return "fused_L64" if fused else "tiled"
 
 
 def _check(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int):
@@ -163,10 +159,9 @@ def mha_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
     if g.data_ptr() % 16:
         raise ValueError("g must be 16-byte aligned (vector loads)")
     dqkv = torch.empty_like(qkv)
-    # per (row, head): softmax max, 1 / sum, rowsum(dp * P); the fused
-    # route keeps them on the SM
-    stats = torch.empty((3, B, n_heads, L) if bwd_route(L, qkv.dtype)
-                        == "tiled" else (0,), dtype=torch.float32,
+    # per (row, head): softmax max, 1 / sum, rowsum(dp * P), for the tiled
+    # route (the fused one keeps them on the SM)
+    stats = torch.empty((3, B, n_heads, L), dtype=torch.float32,
                         device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = _library("mha_qkv_bwd").mha_qkv_bwd(
@@ -211,19 +206,22 @@ def mha_qkv(qkv: torch.Tensor, mask: torch.Tensor,
 mha_qkv.launches = 0
 mha_qkv_bwd.launches = 0
 
+#: each library's C entry points
 _ARGTYPES = {
-    "mha_qkv_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-    "mha_qkv_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
+    "mha_qkv_fwd": {"mha_qkv_fwd": [ctypes.c_void_p] * 3
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p]},
+    "mha_qkv_bwd": {"mha_qkv_bwd": [ctypes.c_void_p] * 5
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                    "mha_qkv_bwd_fused": [ctypes.c_int] * 2},
 }
 
 
 def _library(name: str) -> ctypes.CDLL:
     from . import build
     lib = build.load(name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+    for fn_name, types in _ARGTYPES[name].items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
     return lib

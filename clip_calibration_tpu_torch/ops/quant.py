@@ -51,7 +51,7 @@ class QuantizedWeight(nn.Module):
     """int8 weight, its fp32 per-output-channel scale and an optional
     static activation scale, as buffers (they follow ``.to(device)``), and
     the weight's K-major copy ``kmajor`` (non-persistent; made from ``q``
-    unless given)."""
+    unless given, and remade when a state dict is loaded)."""
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor,
                  act_scale: Optional[torch.Tensor] = None,
@@ -63,6 +63,11 @@ class QuantizedWeight(nn.Module):
         if kmajor is None:
             kmajor = q.transpose(-1, -2).contiguous()
         self.register_buffer("kmajor", kmajor, persistent=False)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        # kmajor is in no state dict: remake it from the int8 just loaded
+        self.kmajor = self.int8.transpose(-1, -2).contiguous()
 
     @property
     def shape(self):

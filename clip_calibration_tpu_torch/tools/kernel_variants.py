@@ -6,9 +6,8 @@ the unchanged source.
 
 TARGET is ``mha_qkv_fwd.cu`` (K1, bf16), ``mha_qkv_fwd.cu:fp32`` (K1,
 fp32), ``mha_qkv_bwd.cu`` (K2, bf16), ``mha_qkv_bwd.cu:fp32`` (K2,
-fp32), ``int8_matmul.cu`` (K3) or ``int8_attention.cu`` (K4); a target
-``NAME@COMMIT`` holds the variants of that commit's source, to be built
-from a checkout of it with ``--csrc``. VARIANTS.json maps a variant's
+fp32), ``int8_matmul.cu`` (K3) or ``int8_attention.cu`` (K4).
+VARIANTS.json maps a variant's
 name to a list of [old, new] text replacements (default: ``RECORDED``,
 the variants PERF.md reports). Each variant is a copy of the target's
 source under ``csrc/`` (or ``--csrc DIR``), with the shared headers,
@@ -50,10 +49,6 @@ _ARGTYPES = {
     "int8_attention": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
 }
-# K3's one entry point at commit 3c33573 (the mma.sync kernel: no split,
-# no rescale); the current ones are ops/int8_matmul.py's ARGTYPES
-_K3_ARGTYPES_3C33573 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-    + [ctypes.c_void_p]
 
 
 def _emit(**fields):
@@ -101,9 +96,9 @@ RECORDED = {
         # the copies alone (route (a): the block returns after them)
         "no_compute": [["    if (!active) continue;",
                         "    if (!active || L > 0) continue;"],
-                       ["  __syncthreads();\n\n  // this warp's head",
-                        "  __syncthreads();\n  if (L > 0) return;\n"
-                        "  // this warp's head"]],
+                       ["  __syncthreads();\n\n  __nv_bfloat16* ks = qs + "
+                        "F::TILE;", "  __syncthreads();\n  if (L > 0) return;"
+                        "\n  __nv_bfloat16* ks = qs + F::TILE;"]],
         # no mask copies (the tiles keep what shared memory held)
         "no_mask": [["  load_mask(ms, F::MLD, mask, L, 0, F::LP, 0, F::LP, "
                      "F::THREADS);", ""],
@@ -112,9 +107,6 @@ RECORDED = {
                      "k0, KT, THREADS);", ""],
                     ["    load_mask(mt, T::MT, mask, L, q0, KT, k_blk, "
                      "T::ROWS, THREADS);", ""]],
-        # route (a) blocks of two heads at L <= 32 (the mask copied once)
-        "two_heads_a_block": [["constexpr int FUSED_MAX_HEADS = 1;",
-                               "constexpr int FUSED_MAX_HEADS = 2;"]],
         # route (b) at every L (the text shapes too)
         "tiled_only": [["constexpr int FUSED_MAX_L = 64;",
                         "constexpr int FUSED_MAX_L = 0;"]],
@@ -146,50 +138,14 @@ RECORDED = {
         "no_mask": [["      mk[r][j] = row < L && col < L ? __ldg(mask + at) "
                      ": 0.f;", "      mk[r][j] = 0.f;"]],
     },
-    # the mma.sync K2 bf16 and K3 as they were at commit 3c33573 (build
-    # from a checkout of it: --csrc); what bounded them before their
-    # redesign
-    "mha_qkv_bwd.cu@3c33573": {
-        # K/V (dq kernel) and q/g (dk/dv kernel) staged for the first tile
-        # only; the mask tiles still come
-        "no_loads": [["    stage_rows<HD>(ks, kb, stride, k0, L, tid);\n"
-                      "    stage_rows<HD>(vs, vb, stride, k0, L, tid);",
-                      "    if (k0 == 0) {\n"
-                      "    stage_rows<HD>(ks, kb, stride, k0, L, tid);\n"
-                      "    stage_rows<HD>(vs, vb, stride, k0, L, tid);}"],
-                     ["    stage_rows<HD>(qs, qb, stride, q0, L, tid);\n"
-                      "    stage_rows<HD>(gs, gb, D, q0, L, tid);",
-                      "    if (q0 == 0) {\n"
-                      "    stage_rows<HD>(qs, qb, stride, q0, L, tid);\n"
-                      "    stage_rows<HD>(gs, gb, D, q0, L, tid);}"]],
-        # the staging alone: every product and softmax skipped
-        "no_compute": [["    if (!active) continue;",
-                        "    if (!active || L > 0) continue;"]],
-        "no_mask": [["      ms[r][c] = (row < L && key < L) ? "
-                     "mask[(long long)row * L + key] : 0.f;",
-                     "      ms[r][c] = 0.f;"],
-                    ["      mt[c][r] = (row < L && key < L) ? "
-                     "mask[(long long)row * L + key] : 0.f;",
-                     "      mt[c][r] = 0.f;"]],
-    },
-    "int8_matmul.cu@3c33573": {
-        # tile 0 reused for every K step (no global loads past it)
-        "no_loads": [["    if (kt + 1 < n_k)\n      load_tile(x, w, M, N, "
-                      "K, m0, n0, (kt + 1) * BK, vec_a, vec_b, t);", ""]],
-        # no mma (a runtime condition that never holds keeps the code)
-        "no_compute": [["for (int ni = 0; ni < 4; ++ni) mma_s8(",
-                        "for (int ni = 0; ni < 4 && K < 0; ++ni) mma_s8("]],
-        "no_store": [["        if (row >= M) continue;",
-                      "        if (row >= M || N > 0) continue;"]],
-    },
     "int8_matmul.cu": {
         # only the ring's first STAGES - 1 k tiles are copied
         "no_loads": [["    if (i + STAGES - 1 < nk) issue(i + STAGES - 1);"
                       "  // into i - 1's stage", ""]],
         # no wgmma (a runtime condition that never holds keeps the code)
-        "no_compute": [["      wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk, "
-                        "1);", "      if (K < 0) wgmma_tile<BN>(acc, da + 2 "
-                        "* kk, db + 2 * kk, 1);"]],
+        "no_compute": [["      wgmma_n128(acc, da + 2 * kk, db + 2 * kk, 1);",
+                        "      if (K < 0) wgmma_n128(acc, da + 2 * kk, db + "
+                        "2 * kk, 1);"]],
         # the staged tile never leaves (split K still adds it)
         "no_store": [["      if (row >= M) break;",
                       "      if (row >= M || N > 0) break;"]],
@@ -198,9 +154,6 @@ RECORDED = {
                           "*reinterpret_cast<int4*>(o) = v;"],
                          ["__stcs(reinterpret_cast<uint2*>(o),",
                           "(*reinterpret_cast<uint2*>(o)) = ("]],
-        # 128 x 256 block tiles (one block an SM)
-        "tile_n_256": [["constexpr int TILE_N = 128;",
-                        "constexpr int TILE_N = 256;"]],
         # a fourth ring stage (one block an SM)
         "stages_4": [["constexpr int STAGES = 3;",
                       "constexpr int STAGES = 4;"]],
@@ -227,9 +180,9 @@ RECORDED = {
 
 
 def source_file(target: str) -> str:
-    """The file under csrc/ of a target (``mha_qkv_fwd.cu:fp32`` and
-    ``mha_qkv_fwd.cu@3c33573`` -> ``mha_qkv_fwd.cu``)."""
-    return target.split("@")[0].split(":")[0]
+    """The file under csrc/ of a target (``mha_qkv_fwd.cu:fp32`` ->
+    ``mha_qkv_fwd.cu``)."""
+    return target.split(":")[0]
 
 
 def _sources(target: str, csrc: str) -> dict:
@@ -291,12 +244,10 @@ def compile_variants(target: str, variants: dict, csrc: str = None,
         if source != "int8_matmul.cu":
             getattr(libs[name], source[:-3]).argtypes = \
                 _ARGTYPES[source[:-3]]
-        elif hasattr(libs[name], "int8_matmul_rescaled"):
+        else:
             from ..ops.int8_matmul import ARGTYPES
             for fn, types in ARGTYPES.items():
                 getattr(libs[name], fn).argtypes = types
-        else:
-            libs[name].int8_matmul.argtypes = _K3_ARGTYPES_3C33573
     return libs
 
 
@@ -346,30 +297,10 @@ K3_SHAPES = [(6656, 768, 3072), (13312, 768, 2304), (208, 3072, 768),
              (1, 768, 512)]
 
 
-def _k3_calls(lib, x, w, wt, xs, ws):
-    """(int32 call, bf16 rescaled call) of one K3 library: the kernel of
-    commit 3c33573 (w [K, N]; the rescale as PyTorch ops after it) or the
-    current one (wt [N, K], through ``ops/int8_matmul.py``'s launch)."""
-    from ..ops import int8_matmul as k3
-    M, K = x.shape
-    N = w.shape[1]
-    stream = torch.cuda.current_stream().cuda_stream
-    if hasattr(lib, "int8_matmul_rescaled"):
-        return (lambda: k3.launch(lib, x, wt),
-                lambda: k3.launch(lib, x, wt, xs, ws, torch.bfloat16))
-
-    def int32():
-        out = torch.empty((M, N), dtype=torch.int32, device=x.device)
-        err = lib.int8_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), M,
-                              N, K, stream)
-        if err != 0:
-            raise RuntimeError(f"cudaError_t {err}")
-        return out
-    return int32, lambda: (int32().float() * xs * ws).to(torch.bfloat16)
-
-
 def _run_k3(libs, dev, gen, flush):
-    from ..ops.int8_matmul import int8_matmul_reference
+    """Each build's int32 and bf16 rescaled products (through
+    ``ops/int8_matmul.py``'s launch) at ``K3_SHAPES``."""
+    from ..ops.int8_matmul import int8_matmul_reference, launch
     for M, K, N in K3_SHAPES:
         x = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                           dtype=torch.int32).to(torch.int8)
@@ -382,8 +313,9 @@ def _run_k3(libs, dev, gen, flush):
         want_r = (want.float() * xs * ws).to(torch.bfloat16)
         rows = {"int32": {}, "rescaled_bf16": {}}
         for name, lib in libs.items():
-            for route, call, ref in zip(rows, _k3_calls(lib, x, w, wt, xs,
-                                                        ws), (want, want_r)):
+            calls = (lambda: launch(lib, x, wt),
+                     lambda: launch(lib, x, wt, xs, ws, torch.bfloat16))
+            for route, call, ref in zip(rows, calls, (want, want_r)):
                 try:
                     got = call()
                     torch.cuda.synchronize()
@@ -405,7 +337,6 @@ def run(target: str, variants: dict, csrc: str = None,
     from ..probe_int8_attention import probe_inputs
     _emit(device=nvidia_smi())
     libs = compile_variants(target, variants, csrc, against)
-    target = target.split("@")[0]
     dev = torch.device("cuda", 0)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -10,6 +10,7 @@ wrapper runs its plain version (CPU tensors). K3 itself is held to the
 plain version on the card by chip_smoke.py.
 """
 
+import copy
 import os
 import os.path as osp
 import shutil
@@ -168,26 +169,28 @@ def test_kmajor_copy_is_derived_and_in_no_file(towers, tmp_path, case):
         assert tuple(moved.kmajor.shape) == (4, 8)
 
 
-def test_k3_launcher_rules():
-    """The split of K (``k3_split``) fills the 132 SMs only where the
-    output tiles leave them idle, never past one split per 128-byte k
-    tile; ``k3_route`` names the route; the Python tile sizes are the
-    CUDA launcher's."""
-    from clip_calibration_tpu_torch.ops import int8_matmul as K3
-    assert K3.k3_split(6656, 3072, 768) == 1       # 52 x 24 tiles
-    assert K3.k3_split(13312, 2304, 768) == 1
-    assert K3.k3_split(208, 768, 3072) == 11       # w_proj: 12 tiles
-    assert K3.k3_split(208, 2304, 768) == 4        # wqkv: 36 tiles
-    assert K3.k3_split(1, 512, 768) == 6           # proj: 4 tiles, 6 k
-    assert K3.k3_split(8, 8, 8) == 1               # one k tile
-    assert K3.k3_route(208, 768, 3072, True) == "split_k"
-    assert K3.k3_route(6656, 3072, 768, True) == "rescaled"
-    assert K3.k3_route(6656, 3072, 768, False) == "int32"
-    src = open(osp.join(REPO, "clip_calibration_tpu_torch", "csrc",
-                        "int8_matmul.cu")).read()
-    for name, value in (("BM", K3.TILE_M), ("TILE_N", K3.TILE_N),
-                        ("BK", K3.TILE_K), ("SMS", K3.SMS)):
-        assert f"constexpr int {name} = {value};" in src, name
+@pytest.mark.parametrize("assign", [False, True])
+@pytest.mark.parametrize("towers_q", [("visual",), ("visual", "text")])
+def test_kmajor_copy_follows_a_loaded_state_dict(towers, towers_q, assign):
+    """Loading one quantized tower's state dict into another remakes
+    every ``kmajor`` from the loaded ``int8`` (it is in no state dict,
+    so nothing else would refresh it)."""
+    _, model, _ = towers
+    src = TQ.quantize_clip_params(model, towers=towers_q)
+    flipped = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in flipped.parameters():
+            p.neg_()
+    dst = TQ.quantize_clip_params(flipped, towers=towers_q)
+    pairs = [(a, b) for a, b in zip(src.modules(), dst.modules())
+             if TQ.is_quantized(a)]
+    assert pairs and not any(torch.equal(a.kmajor, b.kmajor)
+                             for a, b in pairs)
+    dst.load_state_dict(src.state_dict(), assign=assign)
+    for a, b in pairs:
+        assert b.kmajor.is_contiguous()
+        assert torch.equal(b.kmajor, b.int8.t())
+        assert torch.equal(b.kmajor, a.kmajor)
 
 
 @pytest.mark.parametrize("case", ["shape", "dtype", "noncontiguous"])

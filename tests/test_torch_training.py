@@ -125,9 +125,7 @@ K2_ROUTE_EDGES = [(1, 64, "none", None), (16, 16, "causal", None),
 def test_plain_k2_at_the_route_switch_matches_jax_kernel(L, d, kind, real):
     """K2's plain version against the interpret-mode Pallas backward on
     bf16-rounded inputs (the values the bf16 kernels see), compared in
-    fp32 at the JAX suite's gradient tolerances; the route names the
-    launcher's rule."""
-    from clip_calibration_tpu_torch.ops.mha_qkv import bwd_route
+    fp32 at the JAX suite's gradient tolerances."""
     B, H = 2, 4
     qkv, g = (_t(a).bfloat16().float().numpy()
               for a in _inputs(11, B, L, H * d))
@@ -138,16 +136,6 @@ def test_plain_k2_at_the_route_switch_matches_jax_kernel(L, d, kind, real):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
-    assert bwd_route(L, torch.bfloat16) == ("fused_L64" if L <= 64
-                                            else "tiled")
-    assert bwd_route(L, torch.float32) == "tiled"
-
-
-def test_bwd_route_rule_is_the_launchers():
-    from clip_calibration_tpu_torch.ops import mha_qkv as K
-    src = open(osp.join(REPO, "clip_calibration_tpu_torch", "csrc",
-                        "mha_qkv_bwd.cu")).read()
-    assert f"constexpr int FUSED_MAX_L = {K.BWD_FUSED_MAX_L};" in src
 
 
 def test_plain_k2_padded_keys_get_zero_gradient():
