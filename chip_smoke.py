@@ -27,13 +27,28 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    traces its first 5 steps (``TPU.PROFILE_DIR``, a torch.profiler Chrome
    trace): the ``profile`` line lists their top 10 device kernels by total
    time with counts, and fails unless K1 and K2 (12 a step: its fused
-   kernel at the text tower's L 32) are in it.
+   kernel at the text tower's L 32) are in it, or if PyTorch's sorting
+   ``indexing_backward_kernel`` is (the context assembly's backward is a
+   gather).
 5. ``fp32_path``: the same CLI at ``MODEL.PRECISION fp32``, the
    golden-parity precision (tests/test_golden_e2e.py): golden stage 1
    (ZeroshotCLIP on the base classes), then CoOp trained for one epoch of
    7 steps of 32 (5 shots of the 50 base classes) and tested. Asserts
    finite metrics and losses, that every tower layer went through the fp32
    K1 and every train step's 12 text layers through the fp32 K2.
+5b. ``prompt_path``: the same CLI trains the prompt trainers at their
+   published ViT-B/16 configs (bf16, seeded random init): VPT, MaPLe and
+   PromptSRC (batch 4, 1 shot of the 50 base classes: 2 epochs of 12
+   steps, PromptSRC's Gaussian aggregation at the end), KgCoOp,
+   CLIP-Adapter and TaskRes (16 shots, one epoch: 25, 25 and 3 steps),
+   each tested on the base classes; then the VPT model on the new classes
+   with DAC, and ParameterizedTempScaling (ep5_lr5e-2.yaml) on
+   ``train_path``'s CoOp model. Asserts finite losses and metrics,
+   changed trainables, K1 in every layer of every tower forward, and K2
+   12 times a step in each tower whose prompts train: the vision tower at
+   [4, 208, 2304] (route ``tiled``), the text tower for MaPLe, PromptSRC
+   and KgCoOp. The fixed text features of VPT, TaskRes and PromptSRC's
+   teacher are encoded in fp32 on the bf16 tower: fp32 K1 launches.
 6. ``kernel``: each kernel against its plain PyTorch version on the card at
    every shape and mask the paths gave it (each records every distinct
    (qkv shape, heads, dtype, mask)), in bf16 and fp32, with its time, the
@@ -76,7 +91,9 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    against the same weights on the CPU (plain version), fp32.
 12. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
    width, fp32, on the card (K1 and K2) against the CPU (plain versions)
-   with the same weights, context and batch.
+   with the same weights, context and batch; ``prompt_check``: the same
+   for one VPT loss and its shallow and deep vision prompts' gradient
+   (8 tokens, depth 12, batch 4: K2 at L 205 padded to 208).
 13. ``serve_check``: the w8a8 ViT-B/16 vision tower with static scales on
    the card (K3) against the same int8 weights and scales on the CPU (the
    plain version), fp32, by the features' cosine similarity.
@@ -459,7 +476,8 @@ def step_profile(trace_dir: str) -> dict:
     ``TPU.PROFILE_DIR`` wrote: the top 10 by total time with their counts,
     the kernels' summed time, the trace's window and the share of it the
     card spent in kernels. Fails unless K1's and K2's kernels are in the
-    trace and K2's two kernels ran 12 times a step (one per text layer)."""
+    trace and K2 ran 12 times a step (one per text layer), and if
+    PyTorch's sorting ``indexing_backward_kernel`` is in it."""
     import glob
     paths = glob.glob(osp.join(trace_dir, "trace_*.json"))
     if len(paths) != 1:
@@ -487,6 +505,11 @@ def step_profile(trace_dir: str) -> dict:
             != counts["mha_qkv_bwd_dkdv_bf16"]):
         raise AssertionError(f"the trace misses the port's kernels: "
                              f"{counts} ({len(by_name)} kernel names)")
+    # the context assembly's backward is a gather, not PyTorch's sorting
+    # scatter (trainers/coop.py::assemble_prompts)
+    sorting = [n for n in by_name if "indexing_backward_kernel" in n]
+    if sorting:
+        raise AssertionError(f"the traced steps ran {sorting}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     return {"trace": osp.relpath(paths[0], ROOT), "steps": PROFILE_STEPS,
             "window_ms": window_us / 1e3, "kernel_ms": kernel_us / 1e3,
@@ -691,11 +714,238 @@ def run_fp32_path(k1, k2):
     return launches
 
 
+#: prompt_path: the vision-prompt trainers' shots a base class (50 x 1 =
+#: 50 images: 12 steps of 4 an epoch); the others train on the 16 shots
+#: of the main path (its ZeroshotCLIP base cache)
+PROMPT_SHOTS = {"VPT": 1, "MaPLe": 1, "PromptSRC": 1, "KgCoOp": 16,
+                "CLIP_Adapter": 16, "TaskRes": 16}
+#: (trainer, published ViT-B/16 config, epochs, registered slot, towers
+#: whose prompts train: each runs K2 in its 12 layers every step)
+PROMPT_TRAINERS = [
+    ("VPT", "VPT/vit_b16_c2_ep5_batch4_4.yaml", 2, "vpt_prompts",
+     ("vision",)),
+    ("MaPLe", "MaPLe/vit_b16_c2_ep5_batch4.yaml", 2, "prompt_learner",
+     ("vision", "text")),
+    ("PromptSRC", "PromptSRC/vit_b16_c4_ep50_batch4.yaml", 2,
+     "prompt_learner", ("vision", "text")),
+    ("KgCoOp", "KgCoOp/vit_b16_c16_ep200_batch32.yaml", 1, "prompt_learner",
+     ("text",)),
+    ("CLIP_Adapter", "CLIP_Adapter/vit_b16_c4_ep200_batch32.yaml", 1,
+     "adapter", ()),
+    ("TaskRes", "TaskRes/vit_b16_c16_ep200_batch256.yaml", 1,
+     "taskres_learner", ()),
+]
+#: the ViT-B/16 vision tower's padded length at batch 4 with the prompt
+#: tokens of all three vision-prompt configs (197 + 8, 2 or 4 real rows)
+VISION_K2_SHAPE = (4, 208, 2304)
+
+
+def _by_shape_dtype(rec) -> dict:
+    """A recorder's launch counts by (qkv shape, dtype name)."""
+    out = {}
+    for shape, _, dtype, _, count in rec.calls:
+        key = (shape, str(dtype).split(".")[-1])
+        out[key] = out.get(key, 0) + count
+    return out
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def run_prompt_path(k1, k2):
+    """The prompt trainers through the port's CLI at ViT-B/16 (bf16,
+    seeded random init; see the module docstring), K1's and K2's entry
+    points recorded by ``k1`` and ``k2``. Returns the path's launches by
+    kernel instance: {"mha_qkv_fwd": bf16, "mha_qkv_fwd_f32": fp32,
+    "mha_qkv_bwd": bf16, "mha_qkv_bwd_f32": fp32}."""
+    import torch
+    from clip_calibration_tpu_torch.engine.checkpoint import load_checkpoint
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.ops.mha_qkv import (bwd_route, mha_qkv,
+                                                        mha_qkv_bwd)
+    from clip_calibration_tpu_torch.trainers.base_learner import (
+        VLBaseLearner)
+
+    common, _, _ = _common_args(1)
+    cfgs = osp.join(ROOT, "configs", "trainers")
+    layers = M.PRESETS["ViT-B/16"].vision_layers
+    steps, initial = [0], {}
+    loss_step, register = VLBaseLearner.loss_step, \
+        VLBaseLearner.register_trainable
+
+    def counted_step(self, name, batch):
+        steps[0] += 1
+        return loss_step(self, name, batch)
+
+    def recorded_register(self, name, params):
+        initial[name] = {k: v.detach().float().cpu().clone()
+                         for k, v in params.items()}
+        return register(self, name, params)
+
+    def stage(name, args, log):
+        """One CLI run; (seconds, log path, steps, tower forwards, K1
+        and K2 launches by (shape, dtype))."""
+        s0, f0 = steps[0], M.transformer.forwards
+        c1, c2 = _by_shape_dtype(k1), _by_shape_dtype(k2)
+        seconds, log_path = _cli_stage(name, common + args, log)
+        return (seconds, log_path, steps[0] - s0,
+                M.transformer.forwards - f0,
+                _delta(_by_shape_dtype(k1), c1),
+                _delta(_by_shape_dtype(k2), c2))
+
+    def check_k1(name, forwards, k1d):
+        n = sum(k1d.values())
+        # ViT-B/16: 12 layers in each tower, one fused attention each
+        if n == 0 or n != layers * forwards:
+            raise AssertionError(f"{name}: mha_qkv_fwd launched {n} "
+                                 f"times for {forwards} tower forwards")
+
+    mha_qkv.launches = mha_qkv_bwd.launches = 0
+    k1_before, k2_before = _by_shape_dtype(k1), _by_shape_dtype(k2)
+    VLBaseLearner.loss_step = counted_step
+    VLBaseLearner.register_trainable = recorded_register
+    try:
+        seconds, log_path, _, fwd, k1d, _ = stage(
+            "prompt_zsclip_base",
+            ["--trainer", "ZeroshotCLIP", "--config-file",
+             osp.join(cfgs, "ZeroshotCLIP", "vit_b16.yaml"),
+             "--output-dir", osp.join(WORK, "out", "prompt_zsclip_base"),
+             "DATASET.NUM_SHOTS", "1", "DATASET.SUBSAMPLE_CLASSES", "base"],
+            "log.txt")
+        check_k1("prompt_zsclip_base", fwd, k1d)
+        emit("prompt_path", stage="prompt_zsclip_base", seconds=seconds,
+             tower_forwards=fwd,
+             metrics=_checked_metrics("prompt_zsclip_base", log_path))
+
+        for trainer, config, epochs, slot, towers in PROMPT_TRAINERS:
+            out_dir = osp.join(WORK, "out", "prompt_" + trainer)
+            initial.clear()
+            seconds, log_path, n, fwd, k1d, k2d = stage(
+                "prompt_" + trainer,
+                ["--trainer", trainer, "--config-file",
+                 osp.join(cfgs, config), "--output-dir", out_dir,
+                 "DATASET.NUM_SHOTS", str(PROMPT_SHOTS[trainer]),
+                 "DATASET.SUBSAMPLE_CLASSES", "base",
+                 "OPTIM.MAX_EPOCH", str(epochs), "TRAIN.PRINT_FREQ", "1"],
+                "log.txt")
+            text = open(log_path).read()
+            losses = [float(x) for x in re.findall(r" loss (\S+) \(", text)]
+            if n == 0 or len(losses) != n or not all(
+                    map(math.isfinite, losses)):
+                raise AssertionError(f"{trainer}: losses {losses} for {n} "
+                                     f"steps")
+            ckpt = load_checkpoint(osp.join(
+                out_dir, slot, f"model.pth.tar-{epochs}"))["state_dict"]
+            change = max(float((ckpt[k].float() - v).abs().max())
+                         for k, v in initial[slot].items())
+            if not change > 0:
+                raise AssertionError(f"{trainer}: the trainables did not "
+                                     f"change")
+            check_k1(trainer, fwd, k1d)
+            vision = sum(c for (shape, dt), c in k2d.items()
+                         if shape == VISION_K2_SHAPE and dt == "bfloat16")
+            total = sum(k2d.values())
+            want_vision = layers * n if "vision" in towers else 0
+            if (vision != want_vision
+                    or total != layers * n * len(towers)
+                    or (vision and bwd_route(VISION_K2_SHAPE[1],
+                                             torch.bfloat16) != "tiled")):
+                raise AssertionError(
+                    f"{trainer}: {n} steps launched mha_qkv_bwd {k2d} "
+                    f"(want {layers} a step in each of {towers}, the "
+                    f"vision ones at {list(VISION_K2_SHAPE)}, route tiled)")
+            emit("prompt_path", stage="prompt_" + trainer,
+                 config=config, seconds=seconds,
+                 weights="seeded random init (no accuracy claim)",
+                 steps=n, first_loss=losses[0], last_loss=losses[-1],
+                 max_abs_change=change, tower_forwards=fwd,
+                 launches={"mha_qkv_fwd": {f"{list(s)} {d}": c
+                                           for (s, d), c in k1d.items()},
+                           "mha_qkv_bwd": {f"{list(s)} {d}": c
+                                           for (s, d), c in k2d.items()}},
+                 k2_vision_launches=vision,
+                 metrics=_checked_metrics(trainer, log_path))
+
+        # the base-trained VPT on the new classes, with DAC
+        seconds, log_path, n, fwd, k1d, k2d = stage(
+            "prompt_vpt_new_dac",
+            ["--trainer", "VPT", "--config-file",
+             osp.join(cfgs, PROMPT_TRAINERS[0][1]),
+             "--output-dir", osp.join(WORK, "out", "prompt_vpt_new"),
+             "--model-dir", osp.join(WORK, "out", "prompt_VPT"),
+             "--eval-only", "--load-epoch", str(PROMPT_TRAINERS[0][2]),
+             "--calibration-config", json.dumps(
+                 {"BASE_CALIBRATION_MODE": None, "IF_DAC": True,
+                  "IF_PROCAL": False}),
+             "DATASET.NUM_SHOTS", str(PROMPT_SHOTS["VPT"]),
+             "DATASET.SUBSAMPLE_CLASSES", "new"], "log_dac.txt")
+        check_k1("prompt_vpt_new_dac", fwd, k1d)
+        if k2d or n:
+            raise AssertionError(f"prompt_vpt_new_dac: an eval ran {n} "
+                                 f"steps and K2 {k2d}")
+        emit("prompt_path", stage="prompt_vpt_new_dac", seconds=seconds,
+             tower_forwards=fwd,
+             metrics=_checked_metrics("prompt_vpt_new_dac", log_path))
+
+        # ParameterizedTempScaling on the CoOp model train_path trained
+        scale_dir = osp.join(WORK, "out", "coop_pts")
+        c2 = _by_shape_dtype(k2)
+        common2, coop2, opts2 = _common_args(2)  # train_path's seed
+        seconds, log_path = _cli_stage(
+            "prompt_pts", common2 + coop2 + [
+                "--output-dir", scale_dir, "--base-dir",
+                osp.join(WORK, "out", "coop_train"),
+                "--calibration-config", json.dumps({
+                    "BASE_CALIBRATION_MODE": "scaling_based",
+                    "SCALING_CONFIG": osp.join(
+                        ROOT, "configs", "calibration",
+                        "ParameterizedTempScaling", "ep5_lr5e-2.yaml"),
+                    "IF_DAC": False, "IF_PROCAL": False})]
+            + opts2 + ["CALIBRATION.SCALING.BASE_EPOCH", "2",
+                       "TRAIN.PRINT_FREQ", "1",
+                       "DATASET.SUBSAMPLE_CLASSES", "base"],
+            "log_ParameterizedTempScaling.txt")
+        losses = [float(x) for x in re.findall(
+            r" loss (\S+) \(", open(log_path).read())]
+        state = load_checkpoint(osp.join(
+            scale_dir, "scale_learner",
+            "model-calibrated.pth.tar-5"))["state_dict"]
+        s0 = float(state["s0"])
+        if not (losses and all(map(math.isfinite, losses))
+                and math.isfinite(s0) and abs(s0 - 4.6052) > 1e-6
+                and _by_shape_dtype(k2) == c2):
+            raise AssertionError(f"prompt_pts: losses {losses[-3:]}, s0 "
+                                 f"{s0}")
+        emit("prompt_path", stage="prompt_pts", seconds=seconds,
+             scale_steps=len(losses), last_loss=losses[-1], s0=s0,
+             metrics=_checked_metrics("prompt_pts", log_path))
+    finally:
+        VLBaseLearner.loss_step = loss_step
+        VLBaseLearner.register_trainable = register
+    k1d = _delta(_by_shape_dtype(k1), k1_before)
+    k2d = _delta(_by_shape_dtype(k2), k2_before)
+    if (sum(k1d.values()), sum(k2d.values())) != (mha_qkv.launches,
+                                                  mha_qkv_bwd.launches):
+        raise AssertionError("prompt_path: the recorded calls miss kernel "
+                             "launches")
+
+    def of(d, dtype):
+        return sum(c for (_, dt), c in d.items() if dt == dtype)
+
+    return {"mha_qkv_fwd": of(k1d, "bfloat16"),
+            "mha_qkv_fwd_f32": of(k1d, "float32"),
+            "mha_qkv_bwd": of(k2d, "bfloat16"),
+            "mha_qkv_bwd_f32": of(k2d, "float32")}
+
+
 def check_kernels_bwd(device, launched):
     """K2 vs its plain version, timed, at every (qkv shape, heads, mask)
     the train paths launched it with, in bf16 and fp32, and at the
-    ViT-B/16 vision shape with its pad mask (a later slice's shape); then
-    correctness only at the same edges as K1."""
+    ViT-B/16 vision shape at batch 32 with its pad mask (no path launches
+    it: a yardstick kept from earlier runs); then correctness only at the
+    same edges as K1."""
     import torch
     from clip_calibration_tpu_torch.ops.mha_qkv import (
         bwd_route, mha_qkv_bwd, mha_qkv_bwd_reference)
@@ -821,6 +1071,60 @@ def check_train_step(device):
             and float(want.abs().max()) > 0):
         raise AssertionError(f"CoOp ctx gradient on the card differs from "
                              f"the CPU by {rel} (relative)")
+
+
+def check_prompt_step(device):
+    """One VPT loss and vision-prompt gradient at full ViT-B/16 width,
+    fp32 (the published VPT prompts: 8 tokens, depth 12, batch 4): on
+    the card (K1 forward, K2 backward at L 205 padded to 208) vs the CPU
+    (plain versions), same weights, prompts, text features and images."""
+    import torch
+    import torch.nn.functional as F
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.models.backbone import load_clip_backbone
+    from clip_calibration_tpu_torch.models.tokenizer import tokenize
+    from clip_calibration_tpu_torch.models.weights import (flat_params,
+                                                           params_from_numpy)
+    model, cfg = load_clip_backbone("ViT-B/16", "float32", device)
+    cpu_model = params_from_numpy(flat_params(model), cfg, torch.float32,
+                                  "cpu")
+    gen = torch.Generator().manual_seed(4)
+    images = torch.randn((4, 224, 224, 3), generator=gen)
+    labels = torch.randint(0, 10, (4,), generator=gen)
+    shallow0 = torch.randn((8, 768), generator=gen) * 0.02
+    deep0 = torch.randn((11, 8, 768), generator=gen) * 0.02
+    toks = torch.as_tensor(tokenize(
+        ["a photo of a " + n + "." for n in (
+            "red swirl", "green checker", "blue wave", "yellow dot",
+            "purple stripe", "orange grid", "cyan blob", "magenta ring",
+            "white noise", "dark cross")]), dtype=torch.long)
+    grads, losses = {}, {}
+    for dev, m in ((device, model), ("cpu", cpu_model)):
+        with torch.no_grad():
+            txt = M.encode_text(m, cfg, toks.to(dev), dtype=torch.float32,
+                                seq_len=M.eot_seq_len(toks.numpy()))
+        shallow = shallow0.to(dev).requires_grad_()
+        deep = deep0.to(dev).requires_grad_()
+        img = M.encode_image(m, cfg, images.to(dev), dtype=torch.float32,
+                             shallow_prompts=shallow, deep_prompts=deep,
+                             deep_prompt_depth=12)
+        loss = F.cross_entropy(M.cosine_logits(img, txt, m.logit_scale),
+                               labels.to(dev))
+        loss.backward()
+        grads[str(dev)] = (shallow.grad.cpu(), deep.grad.cpu())
+        losses[str(dev)] = float(loss.detach())
+    rel = {}
+    for i, name in enumerate(("shallow", "deep")):
+        want, got = grads["cpu"][i], grads[str(device)][i]
+        rel[name] = float((got - want).abs().max() / want.abs().max())
+        if not (math.isfinite(rel[name]) and rel[name] <= TRAIN_GRAD_RTOL
+                and float(want.abs().max()) > 0):
+            raise AssertionError(f"VPT {name} prompt gradient on the card "
+                                 f"differs from the CPU by {rel[name]} "
+                                 f"(relative)")
+    emit("prompt_check", backbone="ViT-B/16", dtype="float32",
+         loss={"card": losses[str(device)], "cpu": losses["cpu"]},
+         grad_max_rel_diff=rel, rtol=TRAIN_GRAD_RTOL)
 
 
 class ShapeRecorder:
@@ -1556,6 +1860,7 @@ def main() -> int:
         k1_main = run_main_path(k1)
         k1_train, k2_train = run_train_path(k1, k2)
         k1_fp32, k2_fp32 = run_fp32_path(k1, k2)
+        prompt = run_prompt_path(k1, k2)
         k1_serve, k3_serve = run_serve_path(k1, k3)
         k4_probe, probe_rows = run_probe_path()
     finally:
@@ -1580,6 +1885,7 @@ def main() -> int:
                      {r["variant"]: r["launches"] for r in probe_rows})
     timed(check_towers, device)
     timed(check_train_step, device)
+    timed(check_prompt_step, device)
     timed(check_serve_tower, device)
     emit("check_seconds", **seconds)
 
@@ -1590,48 +1896,55 @@ def main() -> int:
         _kernel_entry(
             "mha_qkv_fwd", "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:36",
-            k1_main + k1_train + k1_serve, of(cases_fwd, "bfloat16"),
-            dtype="bfloat16",
+            k1_main + k1_train + prompt["mha_qkv_fwd"] + k1_serve,
+            of(cases_fwd, "bfloat16"), dtype="bfloat16",
             launches_by_path={"main_path": k1_main, "train_path": k1_train,
-                              "fp32_path": 0, "serve_path": k1_serve,
-                              "probe_path": 0}),
+                              "fp32_path": 0,
+                              "prompt_path": prompt["mha_qkv_fwd"],
+                              "serve_path": k1_serve, "probe_path": 0}),
         _kernel_entry(
             "mha_qkv_fwd_f32",
             "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:36",
-            k1_fp32, of(cases_fwd, "float32"), dtype="float32",
+            k1_fp32 + prompt["mha_qkv_fwd_f32"], of(cases_fwd, "float32"),
+            dtype="float32",
             launches_by_path={"main_path": 0, "train_path": 0,
-                              "fp32_path": k1_fp32, "serve_path": 0,
-                              "probe_path": 0}),
+                              "fp32_path": k1_fp32,
+                              "prompt_path": prompt["mha_qkv_fwd_f32"],
+                              "serve_path": 0, "probe_path": 0}),
         _kernel_entry(
             "mha_qkv_bwd", "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
-            k2_train, of(cases_bwd, "bfloat16"), dtype="bfloat16",
+            k2_train + prompt["mha_qkv_bwd"], of(cases_bwd, "bfloat16"),
+            dtype="bfloat16",
             launches_by_path={"main_path": 0, "train_path": k2_train,
-                              "fp32_path": 0, "serve_path": 0,
-                              "probe_path": 0}),
+                              "fp32_path": 0,
+                              "prompt_path": prompt["mha_qkv_bwd"],
+                              "serve_path": 0, "probe_path": 0}),
         _kernel_entry(
             "mha_qkv_bwd_f32",
             "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
-            k2_fp32, of(cases_bwd, "float32"), dtype="float32",
+            k2_fp32 + prompt["mha_qkv_bwd_f32"], of(cases_bwd, "float32"),
+            dtype="float32",
             launches_by_path={"main_path": 0, "train_path": 0,
-                              "fp32_path": k2_fp32, "serve_path": 0,
-                              "probe_path": 0}),
+                              "fp32_path": k2_fp32,
+                              "prompt_path": prompt["mha_qkv_bwd_f32"],
+                              "serve_path": 0, "probe_path": 0}),
         _kernel_entry(
             "int8_matmul", "clip_calibration_tpu_torch/csrc/int8_matmul.cu",
             "clip_calibration_tpu/ops/pallas_int8_matmul.py:35",
             k3_serve, cases_int8,
             launches_by_path={"main_path": 0, "train_path": 0,
-                              "fp32_path": 0, "serve_path": k3_serve,
-                              "probe_path": 0}),
+                              "fp32_path": 0, "prompt_path": 0,
+                              "serve_path": k3_serve, "probe_path": 0}),
         _kernel_entry(
             "int8_attention",
             "clip_calibration_tpu_torch/csrc/int8_attention.cu",
             "benchmarks/probe_int8_attention.py:69", k4_probe, cases_k4,
             launches_by_path={"main_path": 0, "train_path": 0,
-                              "fp32_path": 0, "serve_path": 0,
-                              "probe_path": k4_probe},
+                              "fp32_path": 0, "prompt_path": 0,
+                              "serve_path": 0, "probe_path": k4_probe},
             variants={c["variant"]: {k: c[k] for k in (
                 "main_path_launches", "max_abs_err", "ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by")}

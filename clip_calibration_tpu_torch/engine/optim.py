@@ -108,12 +108,12 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def _sorted_leaves(params: Dict[str, object]) -> List[torch.Tensor]:
+def sorted_leaves(params: Dict[str, object]) -> List[torch.Tensor]:
     """Tensors of a nested dict in jax.tree.leaves order (sorted keys)."""
     out = []
     for k in sorted(params):
         v = params[k]
-        out.extend(_sorted_leaves(v) if isinstance(v, dict) else [v])
+        out.extend(sorted_leaves(v) if isinstance(v, dict) else [v])
     return out
 
 
@@ -124,7 +124,7 @@ def opt_state_leaves(cfg, optimizer: torch.optim.Optimizer,
     in its order: sgd [momentum buffers..., count] (no buffers without
     momentum); adam/adamw [count, first moments..., second moments...,
     count]. Counts are int32, buffers in their parameter's dtype."""
-    leaves = _sorted_leaves(params)
+    leaves = sorted_leaves(params)
     count = torch.tensor(step, dtype=torch.int32)
 
     def buf(p, key):
@@ -145,7 +145,7 @@ def load_opt_state_leaves(cfg, optimizer: torch.optim.Optimizer,
     """Inverse of ``opt_state_leaves``: set the optimizer's state from
     optax-ordered leaves; returns the step count. Raises ValueError when
     the leaves do not fit this optimizer."""
-    leaves = _sorted_leaves(params)
+    leaves = sorted_leaves(params)
     if len(saved) != len(opt_state_leaves(cfg, optimizer, params, 0)):
         raise ValueError(f"{len(saved)} optimizer leaves do not fit "
                          f"{cfg.OPTIM.NAME} over {len(leaves)} parameters")

@@ -333,6 +333,12 @@ class TrainerX:
             f"No checkpoint for {name!r} under {directory!r} "
             f"(tried {self.checkpoint_dir_aliases(name)})")
 
+    def convert_reference_state(self, name: str, state: Dict[str, Any]):
+        """Map a loaded state dict in the reference's layout (dots ->
+        nesting, torch [out, in] Linear weights) onto this trainer's
+        params. Default identity (native checkpoints, CoOp's ``ctx``)."""
+        return state
+
     def convert_to_reference_state(self, name: str, state: Dict[str, Any]):
         """Map this trainer's params to the reference's state-dict layout
         for export. Default identity (CoOp's ``ctx`` shares its name)."""
@@ -406,7 +412,7 @@ class TrainerX:
         for name in self.get_model_names():
             path = self._resolve_aliased(directory, name, epoch)
             ckpt = load_checkpoint(path)
-            state = ckpt["state_dict"]
+            state = self.convert_reference_state(name, ckpt["state_dict"])
             # Ignore fixed token vectors: class sets change between
             # train (base) and test (new) (reference coop.py:334-343)
             state.pop("token_prefix", None)

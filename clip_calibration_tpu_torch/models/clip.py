@@ -41,6 +41,11 @@ class CLIPConfig:
     vocab_size: int = 49408
 
     @property
+    def is_vit(self) -> bool:
+        # a ModifiedResNet tower (not ported) names its stages' depths
+        return isinstance(self.vision_layers, int)
+
+    @property
     def vision_heads(self) -> int:
         return self.vision_width // 64
 
@@ -232,8 +237,18 @@ def init_clip(model: CLIP, seed: int) -> CLIP:
 
 def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
                 mask: Optional[torch.Tensor] = None, qmode: str = "dequant",
-                collect_act_stats: bool = False):
+                collect_act_stats: bool = False, *,
+                deep_prompts: Optional[torch.Tensor] = None,
+                deep_prompt_depth: int = 0, text_side: bool = False):
     """Run the residual blocks over x [B, L, D].
+
+    deep_prompts: [rows, n_ctx, D] per-layer prompt tokens. Layer i in
+    [1, deep_prompt_depth) splices row i-1 into the sequence before its
+    attention (layer 0 never splices: the shallow prompt is already in
+    x); rows past ``n_layers - 1`` are dropped and layers past the last
+    row splice zeros, as the JAX package pads the stack to one row a
+    layer. ``text_side`` picks the splice: positions [1, 1+n_ctx) (text)
+    or the last n_ctx REAL tokens (vision), ahead of the padding below.
 
     The token axis is padded ONCE to a multiple of 16 for the whole tower
     (the JAX package's contract, kept so both see the same shapes):
@@ -266,7 +281,16 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
     stats = None
     if collect_act_stats:
         stats = {"real_len": L, **{(o, k): [] for o, k in BLOCK_WEIGHTS}}
-    for block in blocks:
+    rows = 0
+    if deep_prompts is not None:
+        rows = min(deep_prompts.shape[0], len(blocks) - 1)
+        zeros = torch.zeros(deep_prompts.shape[1:], dtype=x.dtype,
+                            device=x.device)
+    for i, block in enumerate(blocks):
+        if deep_prompts is not None and 0 < i < deep_prompt_depth:
+            prompt = deep_prompts[i - 1] if i - 1 < rows else zeros
+            x = (_splice_text(x, prompt) if text_side
+                 else _splice_vision(x, prompt, L))
         x = block(x, n_heads, mask, qmode=qmode, stats=stats)
     x = x[:, :L] if Lp != L else x
     if not collect_act_stats:
@@ -310,7 +334,9 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
                          eot_pos: torch.Tensor,
                          seq_len: Optional[int] = None,
                          qmode: str = "dequant",
-                         collect_act_stats: bool = False):
+                         collect_act_stats: bool = False, *,
+                         deep_prompts: Optional[torch.Tensor] = None,
+                         deep_prompt_depth: int = 0):
     """Text tower over pre-embedded prompts [N, 77, D] (the PromptLearner
     path, reference TextEncoder ``trainers/classification/coop.py:47-67``).
 
@@ -322,6 +348,8 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
     ``text_projection`` (the pooled rows) and every row up to ``seq_len``
     counts, as the quantized matmuls run over them all. Return becomes
     ``(features, stats)``.
+    deep_prompts / deep_prompt_depth: per-layer text prompts spliced at
+    positions [1, 1+n_ctx) (``transformer``).
     """
     txt = model.text
     if seq_len is not None and seq_len < x.shape[1]:
@@ -334,11 +362,17 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
     x = x + txt.positional_embedding[:x.shape[1]].to(x.dtype)
     mask = causal_mask(x.shape[1], device=x.device)
     x = transformer(txt.blocks, x, cfg.transformer_heads, mask, qmode=qmode,
-                    collect_act_stats=collect_act_stats)
+                    collect_act_stats=collect_act_stats,
+                    deep_prompts=deep_prompts,
+                    deep_prompt_depth=deep_prompt_depth, text_side=True)
     if collect_act_stats:
         x, blocks = x
     x = txt.ln_final(x)
-    pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos]
+    # the EOT row of each prompt, as a gather along the token axis: its
+    # gradient is a scatter-add, where an indexed read's would be
+    # PyTorch's sorting accumulate (indexing_backward_kernel)
+    idx = eot_pos.to(x.device, torch.long).reshape(-1, 1, 1)
+    pooled = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1])).squeeze(1)
     feats = qdot(pooled, txt.text_projection, qmode)
     if not collect_act_stats:
         return feats
@@ -377,14 +411,30 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
                  dtype=torch.bfloat16, qmode: str = "dequant",
-                 collect_act_stats: bool = False):
+                 collect_act_stats: bool = False, *,
+                 shallow_prompts: Optional[torch.Tensor] = None,
+                 deep_prompts: Optional[torch.Tensor] = None,
+                 deep_prompt_depth: int = 0):
     """Vision tower. images: [B, H, W, 3] (NHWC, preprocessed).
+
+    shallow_prompts: [n_ctx, width] tokens appended after the positional
+    embedding, before ``ln_pre`` (VPT / IVLP / MaPLe, reference
+    ``clip/model.py:404-408``); deep_prompts: [depth-1, n_ctx, width]
+    replacements of the last n_ctx real tokens in layers 1..depth-1
+    (``transformer``).
 
     qmode: execution mode of int8 weights (``ops/quant.py::qdot``).
     collect_act_stats: also return the absmax of every quantized-matmul
     input (patchified pixels, the block sites of ``transformer``, the
     ln_post output feeding ``proj``) for static w8a8 calibration; return
     becomes ``(features, stats)``."""
+    if not cfg.is_vit and (shallow_prompts is not None
+                           or deep_prompts is not None):
+        # the reference has no ResNet prompt path either; fail loudly
+        # instead of dropping the prompts
+        raise ValueError(
+            "Vision prompts are not supported with ResNet backbones; "
+            "use a ViT backbone for prompt-injection trainers")
     vp = model.visual
     x = patchify(images.to(dtype), cfg.vision_patch_size)
     stats = {}
@@ -394,9 +444,14 @@ def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
     cls = vp.class_embedding.to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
     x = x + vp.positional_embedding.to(x.dtype)
+    if shallow_prompts is not None:
+        x = torch.cat([x, shallow_prompts.to(x.dtype).expand(
+            x.shape[0], *shallow_prompts.shape)], dim=1)
     x = vp.ln_pre(x)
     x = transformer(vp.blocks, x, cfg.vision_heads, qmode=qmode,
-                    collect_act_stats=collect_act_stats)
+                    collect_act_stats=collect_act_stats,
+                    deep_prompts=deep_prompts,
+                    deep_prompt_depth=deep_prompt_depth, text_side=False)
     if collect_act_stats:
         x, stats["blocks"] = x
     x = vp.ln_post(x[:, 0])

@@ -25,6 +25,8 @@ import os.path as osp
 import numpy as np
 import torch
 
+from ..engine.optim import (build_lr_schedule, build_optimizer,
+                            sorted_leaves)
 from ..engine.registry import TRAINER_REGISTRY
 from ..engine.trainer import TrainerX
 from ..models import clip as M
@@ -78,6 +80,24 @@ def _zs_clip(backbone_name: str, precision: str, device):
         "float32" if precision == "fp32" else "bfloat16", str(device))
 
 
+@torch.no_grad()
+def encode_prompt_sets(model, ccfg, prompt_sets, dtype) -> torch.Tensor:
+    """Frozen class text features averaged over prompt sets: each set
+    (one template) holds one prompt a class and runs as one batch, so
+    memory follows the class count, not the template count; every set is
+    truncated at the furthest EOT of all of them. Returns [n_cls,
+    embed_dim] in ``dtype``. ``model`` needs only ``text`` and
+    ``logit_scale``."""
+    toks = [tokenize(s) for s in prompt_sets]
+    seq = max(M.eot_seq_len(t) for t in toks)
+    device = model.logit_scale.device
+    feats = [M.encode_text(model, ccfg,
+                           torch.as_tensor(t, dtype=torch.long,
+                                           device=device),
+                           dtype=dtype, seq_len=seq) for t in toks]
+    return feats[0] if len(feats) == 1 else torch.stack(feats).mean(0)
+
+
 @torch.inference_mode()
 def encode_classnames_zs(backbone_name: str, dataset_name: str, classnames,
                          template: str | None = None,
@@ -88,12 +108,8 @@ def encode_classnames_zs(backbone_name: str, dataset_name: str, classnames,
     dtype = torch.float32 if precision == "fp32" else torch.bfloat16
     temp = template or build_clip_templates(dataset_name)
     prompts = [temp.format(c.replace("_", " ")) for c in classnames]
-    toks = tokenize(prompts)
-    feats = M.normalize(M.encode_text(
-        model, ccfg, torch.as_tensor(toks, dtype=torch.long,
-                                     device=model.logit_scale.device),
-        dtype=dtype, seq_len=M.eot_seq_len(toks)))
-    return _host(feats)
+    return _host(M.normalize(encode_prompt_sets(model, ccfg, [prompts],
+                                                dtype)))
 
 
 @TRAINER_REGISTRY.register()
@@ -113,7 +129,35 @@ class VLBaseLearner(TrainerX):
             return None
         return self.clip_model.logit_scale
 
+    # -- training ------------------------------------------------------------
+    def register_trainable(self, name: str, params: dict):
+        """Register ``params`` (a nested dict of tensors, every one
+        trained) as ``name``, with the configured optimizer and the LR
+        schedule over this run's train loader."""
+        for t in sorted_leaves(params):
+            t.requires_grad_(True)
+        self.register_model(
+            name, params,
+            lambda: build_optimizer(
+                self.cfg, sorted_leaves(self.model_params(name))),
+            build_lr_schedule(self.cfg, len(self.train_loader_x)))
+
+    def loss_step(self, name: str, batch) -> dict:
+        """One train step of ``name``'s tensors on ``self._loss(images,
+        labels)``: backward, then the optimizer step. The loss stays on
+        the device."""
+        images, labels = self.parse_batch_train(batch)
+        self.optimizer(name).zero_grad(set_to_none=True)
+        loss = self._loss(images, self.put_batch(labels))
+        loss.backward()
+        self.optimizer_step(name)
+        return {"loss": loss.detach()}
+
     # -- quantized frozen vision tower (TRAINER.QUANT_FROZEN_VISION) -------
+    #: True on trainers whose image tower takes TRAINABLE prompt inputs
+    #: (VPT, MaPLe, PromptSRC): the tower is on the gradient path there
+    #: and cannot run quantized
+    vision_tower_trainable = False
     #: encode_image qmode of the frozen tower ("dequant" = full precision
     #: on plain weights; set by setup_frozen_vision)
     vision_qmode = "dequant"
@@ -173,6 +217,12 @@ class VLBaseLearner(TrainerX):
             raise ValueError(
                 f"TRAINER.QUANT_FROZEN_VISION={mode!r}: expected '', "
                 "'int8' or 'w8a8'")
+        if self.vision_tower_trainable:
+            raise ValueError(
+                f"{type(self).__name__} trains vision-side prompts — the "
+                "image tower is on the gradient path and cannot run "
+                "quantized (TRAINER.QUANT_FROZEN_VISION applies to "
+                "frozen-vision trainers only)")
         from ..ops import quant as Q
         from ..ops.preprocess import normalize_images
         qm = Q.quantize_clip_params(self.clip_model)

@@ -27,7 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from ...engine.checkpoint import load_checkpoint
-from ...engine.optim import build_lr_schedule, build_optimizer
 from ...engine.registry import TRAINER_REGISTRY
 from ..base_learner import VLBaseLearner
 
@@ -101,18 +100,18 @@ class TempScaling(VLBaseLearner):
         # the frozen model's own temperature, divided out of its logits
         self._base_log_scale = float(self.base.clip_model.logit_scale)
 
-        scale = torch.tensor(cfg.CALIBRATION.SCALING.INIT_TEMP,
-                             dtype=torch.float32, device=self.device,
-                             requires_grad=True)
-        self.register_model(
-            "scale_learner", {"scale": scale},
-            lambda: build_optimizer(cfg, [scale]),
-            build_lr_schedule(cfg, len(self.train_loader_x)))
+        self.register_trainable("scale_learner", self.init_scale_params())
 
         self._cos_cache = {}  # impath tuple -> (cos_logits, labels)
         # the cache is valid only while the base model stays frozen
         self._base_fingerprint = self._fingerprint_base()
         self._fingerprint_checked = False
+
+    def init_scale_params(self) -> dict:
+        """The scale learner's tensors: one log-temperature."""
+        return {"scale": torch.tensor(
+            self.cfg.CALIBRATION.SCALING.INIT_TEMP, dtype=torch.float32,
+            device=self.device)}
 
     # the CLIP backbone lives on the wrapped base learner
     @property

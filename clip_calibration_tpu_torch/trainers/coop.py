@@ -3,9 +3,9 @@
 Parity target: reference ``trainers/classification/coop.py``.
 Learnable context vectors (unified or class-specific ``CSC``) are spliced
 into pre-embedded class prompts at position end/middle/front; only the
-context trains, the CLIP backbone stays frozen. Prompt assembly is one
-gather + select over index maps built once on the host from the tokenized
-prompts.
+context trains, the CLIP backbone stays frozen. Prompt assembly writes
+the context rows into the frozen prompt embeddings at positions mapped
+once on the host from the tokenized prompts (``assemble_prompts``).
 
 A train step (``forward_backward``) is the JAX step's dataflow: the text
 tower runs with autograd (the fused attention's backward, kernel K2, in
@@ -20,7 +20,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..engine.optim import build_lr_schedule, build_optimizer
 from ..engine.registry import TRAINER_REGISTRY
 from ..models import clip as M
 from ..models.backbone import load_clip_backbone
@@ -51,8 +50,9 @@ def build_prompt_assembly(classnames, n_ctx: int, class_token_position:
       embedding: [n_cls, 77, D] frozen token embeddings in compute dtype
         (ctx positions hold the placeholder embedding),
       tokenized: [n_cls, 77] (for EOT argmax pooling), eot_pos, seq_len,
-      ctx_idx / const_mask: [n_cls, 77] gather maps — final row p is
-        ctx[ctx_idx[c, p]] where const_mask is False, else embedding[c, p],
+      ctx_pos: [n_cls, n_ctx] the position of context row j in class
+        c's prompt (``assemble_prompts`` writes it there; the other rows
+        are the embedding's),
       ctx_vectors: init value [n_ctx, D] numpy (None without ctx_init),
       n_ctx, prompt_prefix, name_lens.
     """
@@ -92,8 +92,7 @@ def build_prompt_assembly(classnames, n_ctx: int, class_token_position:
     embedding = emb_table[tokenized]  # [n_cls, 77, D]
 
     n_cls, L = tokenized.shape
-    ctx_idx = np.zeros((n_cls, L), np.int64)
-    const_mask = np.ones((n_cls, L), bool)
+    ctx_pos = np.full((n_cls, n_ctx), -1, np.int64)
 
     for c in range(n_cls):
         nl = name_lens[c]
@@ -120,13 +119,16 @@ def build_prompt_assembly(classnames, n_ctx: int, class_token_position:
         order = order[:L]
         for p, (kind, j) in enumerate(order):
             if kind == "ctx":
-                ctx_idx[c, p] = j
-                const_mask[c, p] = False
+                ctx_pos[c, j] = p
             elif j != p:
                 # move the constant token's embedding to its new position
                 # (reads are always from j >= p, not yet overwritten)
                 embedding[c, p] = embedding[c, j]
 
+    if (ctx_pos < 0).any():
+        raise ValueError(
+            f"a class name pushes context tokens past position {L}: "
+            f"{[classnames[c] for c in np.nonzero((ctx_pos < 0).any(1))[0]]}")
     device = clip_model.logit_scale.device
     eot_pos = tokenized.argmax(-1)
     return {
@@ -138,8 +140,7 @@ def build_prompt_assembly(classnames, n_ctx: int, class_token_position:
         # causal mask => positions past the furthest EOT never reach the
         # pooled feature (models/clip.py::eot_seq_len)
         "seq_len": int(eot_pos.max()) + 1,
-        "ctx_idx": torch.as_tensor(ctx_idx, device=device),
-        "const_mask": torch.as_tensor(const_mask, device=device),
+        "ctx_pos": torch.as_tensor(ctx_pos, device=device),
         "ctx_vectors": ctx_vectors,
         "n_ctx": n_ctx,
         "prompt_prefix": prompt_prefix,
@@ -148,15 +149,22 @@ def build_prompt_assembly(classnames, n_ctx: int, class_token_position:
 
 
 def assemble_prompts(ctx: torch.Tensor, asm) -> torch.Tensor:
-    """ctx [n_ctx, D] or [n_cls, n_ctx, D] -> [n_cls, 77, D] prompt rows."""
+    """ctx [n_ctx, D] or [n_cls, n_ctx, D] -> [n_cls, 77, D] prompt rows:
+    the frozen embeddings with context row j written at ``ctx_pos[c, j]``
+    (the rows of the JAX package's gather + select).
+
+    Written as a scatter, not a gather of the context: the gradient is
+    then a gather of the prompt rows' gradient at ``ctx_pos`` (summed
+    over classes for a shared context), where a gather's gradient would
+    be an accumulating scatter into the context, which PyTorch runs as a
+    sort (``indexing_backward_kernel``)."""
     emb = asm["embedding"]
+    pos = asm["ctx_pos"]
     ctx = ctx.to(emb.dtype)
     if ctx.ndim == 2:
-        gathered = ctx[asm["ctx_idx"]]  # [n_cls, 77, D]
-    else:  # class-specific context [n_cls, n_ctx, D]
-        rows = torch.arange(emb.shape[0], device=emb.device)[:, None]
-        gathered = ctx[rows, asm["ctx_idx"]]
-    return torch.where(asm["const_mask"][:, :, None], emb, gathered)
+        ctx = ctx.expand(pos.shape[0], *ctx.shape)
+    rows = torch.arange(pos.shape[0], device=emb.device)[:, None]
+    return emb.index_put((rows.expand_as(pos), pos), ctx)
 
 
 @TRAINER_REGISTRY.register()
@@ -218,13 +226,14 @@ class CoOp(VLBaseLearner):
                   if len(shape) == 3 else "Initializing a generic context")
             ctx = torch.randn(shape, generator=gen, device=self.device) \
                 * 0.02
-        ctx.requires_grad_(True)
-        self.register_model(
-            "prompt_learner", {"ctx": ctx},
-            lambda: build_optimizer(cfg, [ctx]),
-            build_lr_schedule(cfg, len(self.train_loader_x)))
+        self.register_trainable("prompt_learner", {"ctx": ctx})
         self._cached_text_features = None
+        self.post_build()
         self.setup_frozen_vision()
+
+    def post_build(self):
+        """Subclass hook after the context is registered (KgCoOp's
+        zero-shot text features)."""
 
     def _resolve_ctx_init(self, tcfg) -> str:
         """KgCoOp configs use CTX_INIT: True meaning "a photo of a"
@@ -276,13 +285,9 @@ class CoOp(VLBaseLearner):
         return F.cross_entropy(logits, labels.long())
 
     def forward_backward(self, batch):
-        images, labels = self.parse_batch_train(batch)
-        self.optimizer("prompt_learner").zero_grad(set_to_none=True)
-        loss = self._loss(images, self.put_batch(labels))
-        loss.backward()
-        self.optimizer_step("prompt_learner")
+        out = self.loss_step("prompt_learner", batch)
         self._cached_text_features = None  # ctx changed
-        return {"loss": loss.detach()}
+        return out
 
     # -- eval ---------------------------------------------------------------
     def model_inference(self, images):

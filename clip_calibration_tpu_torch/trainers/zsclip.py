@@ -14,9 +14,8 @@ import torch
 from ..engine.registry import TRAINER_REGISTRY
 from ..models import clip as M
 from ..models.backbone import load_clip_backbone
-from ..models.tokenizer import tokenize
 from ..ops.preprocess import normalize_images
-from .base_learner import VLBaseLearner
+from .base_learner import VLBaseLearner, encode_prompt_sets
 from .templates import CUSTOM_TEMPLATES
 
 
@@ -38,11 +37,8 @@ class ZeroshotCLIP(VLBaseLearner):
         temp = CUSTOM_TEMPLATES[cfg.DATASET.NAME]
         prompts = [temp.format(c.replace("_", " ")) for c in classnames]
         print(f"Prompts: {prompts}")
-        toks = tokenize(prompts)
-        self.text_features = M.normalize(M.encode_text(
-            self.clip_model, self.clip_cfg,
-            torch.as_tensor(toks, dtype=torch.long, device=self.device),
-            dtype=self.compute_dtype, seq_len=M.eot_seq_len(toks)))
+        self.text_features = M.normalize(encode_prompt_sets(
+            self.clip_model, self.clip_cfg, [prompts], self.compute_dtype))
         self.setup_frozen_vision()
 
     def model_inference(self, images):
