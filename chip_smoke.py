@@ -49,6 +49,23 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    [4, 208, 2304] (route ``tiled``), the text tower for MaPLe, PromptSRC
    and KgCoOp. The fixed text features of VPT, TaskRes and PromptSRC's
    teacher are encoded in fp32 on the bf16 tower: fp32 K1 launches.
+5c. ``fanout_path``: the same CLI at ViT-B/16 (bf16, seeded random init)
+   runs the text fan-out trainers at their published configs, cut in
+   epochs and shots only: CoCoOp (``vit_b16_c4_ep10_batch1.yaml``, 1 shot
+   of the 50 base classes: 50 steps of one image, each 50 prompt rows
+   through the text tower) trained and tested on the base classes, then
+   eval-only on them under ``TRAINER.QUANT_EVAL_TEXT w8a8`` (K3 on the text
+   tower) and on the new classes with DAC; ProGrad
+   (``vit_b16_c16_ep100_batch32.yaml``, 16 shots, one epoch of 25 steps: two
+   backward passes a step, an fp32 zero-shot teacher); ProDA
+   (``vit_b16_c16_ep100_batch4.yaml``, 1 shot: 12 steps, each one tower call
+   over 50 x 4 prompt rows and 32 class-free rows) tested with a w8a8
+   ``set_classifier``; ZeroshotCLIP and 3 CoOp steps on RN50 (the
+   ModifiedResNet image tower, ``rn50`` configs, 2 shots). Asserts finite
+   losses and metrics, changed trainables, K1 in every tower layer, K2 in
+   every text layer of every backward pass (bf16), K3 49 times a w8a8
+   text forward and nowhere else; each stage's line lists K1, K2 (with its
+   route) and K3 (with its route) launches by shape.
 6. ``kernel``: each kernel against its plain PyTorch version on the card at
    every shape and mask the paths gave it (each records every distinct
    (qkv shape, heads, dtype, mask)), in bf16 and fp32, with its time, the
@@ -93,7 +110,11 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    width, fp32, on the card (K1 and K2) against the CPU (plain versions)
    with the same weights, context and batch; ``prompt_check``: the same
    for one VPT loss and its shallow and deep vision prompts' gradient
-   (8 tokens, depth 12, batch 4: K2 at L 205 padded to 208).
+   (8 tokens, depth 12, batch 4: K2 at L 205 padded to 208);
+   ``fanout_check``: CoCoOp's context and meta-net gradients over 11
+   images x 50 classes (two checkpointed chunks: K1 runs again in the
+   backward) and ProGrad's two gradients (the second backward pass over
+   the retained graph) and its projection, card against CPU.
 13. ``serve_check``: the w8a8 ViT-B/16 vision tower with static scales on
    the card (K3) against the same int8 weights and scales on the CPU (the
    plain version), fp32, by the features' cosine similarity.
@@ -940,6 +961,183 @@ def run_prompt_path(k1, k2):
             "mha_qkv_bwd_f32": of(k2d, "float32")}
 
 
+#: fanout_path's stages: (name, trainer, published config, shots, classes,
+#: flags, opts, log, backward passes a train step through the text tower:
+#: ProGrad's two, 0 for an eval; each runs K2 in every text layer)
+FANOUT_STAGES = [
+    ("fanout_cocoop_train", "CoCoOp", "CoCoOp/vit_b16_c4_ep10_batch1.yaml",
+     1, "base", [], ["OPTIM.MAX_EPOCH", "1"], "log.txt", 1),
+    ("fanout_cocoop_base_w8a8", "CoCoOp",
+     "CoCoOp/vit_b16_c4_ep10_batch1.yaml", 1, "base",
+     ["--model-dir", "fanout_cocoop_train", "--eval-only", "--load-epoch",
+      "1"], ["TRAINER.QUANT_EVAL_TEXT", "w8a8"], "log.txt", 0),
+    ("fanout_cocoop_new_dac", "CoCoOp", "CoCoOp/vit_b16_c4_ep10_batch1.yaml",
+     1, "new", ["--model-dir", "fanout_cocoop_train", "--eval-only",
+                "--load-epoch", "1", "--calibration-config", json.dumps(
+                    {"BASE_CALIBRATION_MODE": None, "IF_DAC": True,
+                     "IF_PROCAL": False})], [], "log_dac.txt", 0),
+    ("fanout_prograd", "ProGrad", "ProGrad/vit_b16_c16_ep100_batch32.yaml",
+     16, "base", [], ["OPTIM.MAX_EPOCH", "1"], "log.txt", 2),
+    ("fanout_proda", "ProDA", "ProDA/vit_b16_c16_ep100_batch4.yaml", 1,
+     "base", [], ["OPTIM.MAX_EPOCH", "1", "TRAINER.QUANT_EVAL_TEXT", "w8a8"],
+     "log.txt", 1),
+    ("fanout_rn50_zsclip", "ZeroshotCLIP", "ZeroshotCLIP/rn50.yaml", 2,
+     "base", [], [], "log.txt", 0),
+    ("fanout_rn50_coop", "CoOp", "CoOp/rn50_c16_ep200_batch32.yaml", 2,
+     "base", [], ["OPTIM.MAX_EPOCH", "1"], "log.txt", 1),
+]
+#: int8 products of one w8a8 text-tower forward (ViT-B/16 and RN50 text: 4
+#: in each of 12 blocks and the text projection)
+TEXT_W8A8_PRODUCTS = 4 * 12 + 1
+
+
+def _by_mkn(rec) -> dict:
+    """The K3 recorder's launch counts by ((M, K, N), route)."""
+    return {(mkn, route): n for mkn, routes in rec.calls.items()
+            for route, n in routes.items()}
+
+
+def run_fanout_path(k1, k2, k3):
+    """The text fan-out trainers and the ResNet tower through the port's
+    CLI (see the module docstring), K1's, K2's and K3's entry points
+    recorded by ``k1``, ``k2`` and ``k3``. Returns the path's launches by
+    kernel instance."""
+    import torch
+    from clip_calibration_tpu_torch.engine.checkpoint import (flatten_params,
+                                                              load_checkpoint)
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.ops.int8_matmul import int8_matmul
+    from clip_calibration_tpu_torch.ops.mha_qkv import (bwd_route, mha_qkv,
+                                                        mha_qkv_bwd)
+    from clip_calibration_tpu_torch.trainers.base_learner import (
+        VLBaseLearner)
+    from clip_calibration_tpu_torch.trainers.cocoop import CoCoOp
+    from clip_calibration_tpu_torch.trainers.coop import CoOp
+    from clip_calibration_tpu_torch.trainers.proda import ProDA
+    from clip_calibration_tpu_torch.trainers.prograd import ProGrad
+
+    common, _, _ = _common_args(1)
+    cfgs = osp.join(ROOT, "configs", "trainers")
+    layers = M.PRESETS["ViT-B/16"].transformer_layers
+    steps, initial = [0], {}
+    classes = (CoOp, CoCoOp, ProGrad, ProDA)
+    steppers = {cls: cls.__dict__["forward_backward"] for cls in classes}
+    register = VLBaseLearner.register_trainable
+    text = ForwardCounter(M.encode_text_embedded)
+
+    def counting(fn):
+        def step(self, batch):
+            steps[0] += 1
+            return fn(self, batch)
+        return step
+
+    def recorded_register(self, name, params):
+        initial[name] = {k: v.detach().float().cpu().clone()
+                         for k, v in flatten_params(params).items()}
+        return register(self, name, params)
+
+    def out_dir(name):
+        return osp.join(WORK, "out", name)
+
+    def fmt(d):
+        return {f"{list(s)} {dt}": c for (s, dt), c in d.items()}
+
+    mha_qkv.launches = mha_qkv_bwd.launches = int8_matmul.launches = 0
+    before = (_by_shape_dtype(k1), _by_shape_dtype(k2), _by_mkn(k3))
+    for cls in classes:
+        cls.forward_backward = counting(steppers[cls])
+    VLBaseLearner.register_trainable = recorded_register
+    M.encode_text_embedded = text
+    try:
+        for (name, trainer, config, shots, subsample, flags, opts, log,
+             passes) in FANOUT_STAGES:
+            flags = [out_dir(f) if f.startswith("fanout_") else f
+                     for f in flags]
+            initial.clear()
+            s0, f0 = steps[0], M.transformer.forwards
+            w0 = text.by_qmode.get("w8a8", 0)
+            c1, c2, c3 = (_by_shape_dtype(k1), _by_shape_dtype(k2),
+                          _by_mkn(k3))
+            seconds, log_path = _cli_stage(name, common + [
+                "--trainer", trainer, "--config-file",
+                osp.join(cfgs, config), "--output-dir", out_dir(name)]
+                + flags + ["DATASET.NUM_SHOTS", str(shots),
+                           "DATASET.SUBSAMPLE_CLASSES", subsample,
+                           "DATALOADER.TEST.BATCH_SIZE", "32",
+                           "TRAIN.PRINT_FREQ", "1"] + opts, log)
+            n, fwd = steps[0] - s0, M.transformer.forwards - f0
+            w8a8 = text.by_qmode.get("w8a8", 0) - w0
+            k1d = _delta(_by_shape_dtype(k1), c1)
+            k2d = _delta(_by_shape_dtype(k2), c2)
+            k3d = _delta(_by_mkn(k3), c3)
+            n1, n2, n3 = (sum(d.values()) for d in (k1d, k2d, k3d))
+            losses = [float(x) for x in re.findall(
+                r" loss (\S+) \(", open(log_path).read())]
+            fields = {}
+            if passes:
+                slot = "prompt_learner"
+                ckpt = load_checkpoint(osp.join(
+                    out_dir(name), slot, "model.pth.tar-1"))["state_dict"]
+                change = max(float((v.float() - initial[slot][k]).abs().max())
+                             for k, v in flatten_params(ckpt).items())
+                if not (n and len(losses) == n
+                        and all(map(math.isfinite, losses)) and change > 0):
+                    raise AssertionError(f"{name}: losses {losses} for {n} "
+                                         f"steps, change {change}")
+                fields = {"steps": n, "first_loss": losses[0],
+                          "last_loss": losses[-1], "max_abs_change": change}
+            elif n or n2:
+                raise AssertionError(f"{name}: an eval ran {n} steps and K2 "
+                                     f"{k2d}")
+            # every tower layer through K1 (RN50's image tower has none);
+            # K2 a text layer per backward pass, bf16; K3 every int8
+            # product of every w8a8 text forward, nowhere else
+            if n1 == 0 or n1 != layers * fwd:
+                raise AssertionError(f"{name}: mha_qkv_fwd launched {n1} "
+                                     f"times for {fwd} tower forwards")
+            if n2 != layers * passes * n or any(dt != "bfloat16"
+                                                for _, dt in k2d):
+                raise AssertionError(f"{name}: {n} steps launched "
+                                     f"mha_qkv_bwd {k2d} (want "
+                                     f"{layers * passes} a step, bf16)")
+            if n3 != TEXT_W8A8_PRODUCTS * w8a8 or (
+                    "QUANT_EVAL_TEXT" in " ".join(opts)) != (w8a8 > 0):
+                raise AssertionError(f"{name}: int8_matmul launched {n3} "
+                                     f"times for {w8a8} w8a8 text forwards")
+            emit("fanout_path", stage=name, trainer=trainer, config=config,
+                 seconds=seconds,
+                 weights="seeded random init (no accuracy claim)",
+                 tower_forwards=fwd, w8a8_text_forwards=w8a8, **fields,
+                 launches={
+                     "mha_qkv_fwd": fmt(k1d),
+                     "mha_qkv_bwd": {f"{list(s)} {dt} "
+                                     f"{bwd_route(s[1], torch.bfloat16)}": c
+                                     for (s, dt), c in k2d.items()},
+                     "int8_matmul": {f"{list(mkn)} {route}": c
+                                     for (mkn, route), c in k3d.items()}},
+                 metrics=_checked_metrics(name, log_path))
+    finally:
+        for cls in classes:
+            cls.forward_backward = steppers[cls]
+        VLBaseLearner.register_trainable = register
+        M.encode_text_embedded = text.fn
+    k1d = _delta(_by_shape_dtype(k1), before[0])
+    k2d = _delta(_by_shape_dtype(k2), before[1])
+    k3n = sum(_delta(_by_mkn(k3), before[2]).values())
+    if (sum(k1d.values()), sum(k2d.values()), k3n) != (
+            mha_qkv.launches, mha_qkv_bwd.launches, int8_matmul.launches):
+        raise AssertionError("fanout_path: the recorded calls miss kernel "
+                             "launches")
+
+    def of(d, dtype):
+        return sum(c for (_, dt), c in d.items() if dt == dtype)
+
+    return {"mha_qkv_fwd": of(k1d, "bfloat16"),
+            "mha_qkv_fwd_f32": of(k1d, "float32"),
+            "mha_qkv_bwd": of(k2d, "bfloat16"),
+            "mha_qkv_bwd_f32": of(k2d, "float32"), "int8_matmul": k3n}
+
+
 def check_kernels_bwd(device, launched):
     """K2 vs its plain version, timed, at every (qkv shape, heads, mask)
     the train paths launched it with, in bf16 and fp32, and at the
@@ -1125,6 +1323,136 @@ def check_prompt_step(device):
     emit("prompt_check", backbone="ViT-B/16", dtype="float32",
          loss={"card": losses[str(device)], "cpu": losses["cpu"]},
          grad_max_rel_diff=rel, rtol=TRAIN_GRAD_RTOL)
+
+
+def check_fanout_step(device):
+    """The fan-out trainers' gradients at full ViT-B/16 width, fp32, on the
+    card (K1, K2) against the CPU (plain versions), same weights, inputs
+    and trainables: CoCoOp's context and meta-net over 11 images x 50
+    classes (550 text rows, so two checkpointed chunks of 10 and 1 images:
+    K1 runs again in the backward), and ProGrad's two gradients (the
+    second backward pass over the retained graph) and its projection,
+    against the KL gradient and against its opposite (a conflict: the
+    projecting branch)."""
+    import torch
+    import torch.nn.functional as F
+    from clip_calibration_tpu_torch.data.datasets.synthetic import _classname
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.models.backbone import load_clip_backbone
+    from clip_calibration_tpu_torch.models.tokenizer import tokenize
+    from clip_calibration_tpu_torch.models.weights import (flat_params,
+                                                           params_from_numpy)
+    from clip_calibration_tpu_torch.ops.mha_qkv import mha_qkv, mha_qkv_bwd
+    from clip_calibration_tpu_torch.trainers import cocoop
+    from clip_calibration_tpu_torch.trainers.coop import (
+        assemble_prompts, build_prompt_assembly)
+    from clip_calibration_tpu_torch.trainers.prograd import (prograd_losses,
+                                                             prograd_project)
+    model, cfg = load_clip_backbone("ViT-B/16", "float32", device)
+    cpu_model = params_from_numpy(flat_params(model), cfg, torch.float32,
+                                  "cpu")
+    gen = torch.Generator().manual_seed(7)
+    names = [_classname(c) for c in range(50)]
+    labels = torch.randint(0, 50, (11,), generator=gen)
+    hid, width = cfg.embed_dim // 16, cfg.transformer_width
+    res = cfg.image_resolution
+    images = torch.randn((11, res, res, 3), generator=gen)
+
+    def uniform(shape, fan_in):
+        return (torch.rand(shape, generator=gen) * 2 - 1) * fan_in ** -0.5
+
+    init = {"ctx": torch.randn((4, width), generator=gen) * 0.02,
+            "w1": uniform((cfg.embed_dim, hid), cfg.embed_dim),
+            "b1": uniform((hid,), cfg.embed_dim),
+            "w2": uniform((hid, width), hid), "b2": uniform((width,), hid)}
+    images8 = torch.randn((8, res, res, 3), generator=gen)
+    labels8 = torch.randint(0, 10, (8,), generator=gen)
+    ctx16 = torch.randn((16, width), generator=gen) * 0.02
+    toks = torch.as_tensor(tokenize([f"a photo of a {n} pattern."
+                                     for n in names[:10]]), dtype=torch.long)
+    chunks, out = [], {}
+    real = cocoop.checkpoint
+
+    def counted(fn, *args, **kwargs):
+        chunks.append(args[0].shape[0])
+        return real(fn, *args, **kwargs)
+
+    cocoop.checkpoint = counted
+    try:
+        for dev, m in ((device, model), ("cpu", cpu_model)):
+            l0 = (mha_qkv.launches, mha_qkv_bwd.launches)
+            asm = build_prompt_assembly(names, 4, "end", "", m,
+                                        torch.float32)
+            p = {k: v.to(dev).requires_grad_() for k, v in init.items()}
+            with torch.no_grad():
+                img_f = M.normalize(M.encode_image(
+                    m, cfg, images.to(dev), dtype=torch.float32))
+            ctx = p["ctx"][None] + cocoop.meta_net_forward(p, img_f)[:, None]
+            logits, _ = cocoop.fanout_logits(m, cfg, asm, ctx, img_f)
+            loss = F.cross_entropy(logits, labels.to(dev))
+            grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+            cocoop_launches = (mha_qkv.launches - l0[0],
+                               mha_qkv_bwd.launches - l0[1])
+
+            asm = build_prompt_assembly(names[:10], 16, "end", "", m,
+                                        torch.float32)
+            ctx = ctx16.to(dev).requires_grad_()
+            with torch.no_grad():
+                img = M.encode_image(m, cfg, images8.to(dev),
+                                     dtype=torch.float32)
+                zs = M.normalize(M.encode_text(
+                    m, cfg, toks.to(dev), dtype=torch.float32,
+                    seq_len=M.eot_seq_len(toks.numpy()))).float()
+            txt = M.encode_text_embedded(m, cfg, assemble_prompts(ctx, asm),
+                                         asm["eot_pos"],
+                                         seq_len=asm["seq_len"])
+            scale = torch.exp(m.logit_scale.float())
+            xe, kl = prograd_losses(
+                M.cosine_logits(img, txt, m.logit_scale),
+                scale * (M.normalize(img).float() @ zs.T), labels8.to(dev),
+                1.0)
+            g_ce, = torch.autograd.grad(xe, [ctx], retain_graph=True)
+            g_kl, = torch.autograd.grad(kl, [ctx])
+            proj, = prograd_project([g_ce], [g_kl], 1.0)
+            # the projecting branch too: against the opposite KL direction
+            proj_conflict, = prograd_project([g_ce], [-g_kl], 1.0)
+            cos = float((M.normalize(g_ce.flatten()) *
+                         M.normalize(g_kl.flatten())).sum())
+            out[str(dev)] = {
+                "cocoop_loss": float(loss.detach()),
+                "prograd_losses": [float(xe.detach()), float(kl.detach())],
+                "prograd_cos": cos, "cocoop_launches": cocoop_launches,
+                "grads": {**{"cocoop_" + k: g.cpu()
+                             for k, g in grads.items()},
+                          "prograd_ce": g_ce.cpu(), "prograd_kl": g_kl.cpu(),
+                          "prograd_projected": proj.cpu(),
+                          "prograd_projected_conflict": proj_conflict.cpu()}}
+    finally:
+        cocoop.checkpoint = real
+    card, cpu = out[str(device)], out["cpu"]
+    rel = {k: float((card["grads"][k] - w).abs().max() / w.abs().max())
+           for k, w in cpu["grads"].items()}
+    emit("fanout_check", backbone="ViT-B/16", dtype="float32",
+         cocoop_rows=11 * 50, checkpointed_chunks_of_images=chunks,
+         cocoop_card_launches={"mha_qkv_fwd": card["cocoop_launches"][0],
+                               "mha_qkv_bwd": card["cocoop_launches"][1]},
+         loss={"card": card["cocoop_loss"], "cpu": cpu["cocoop_loss"]},
+         prograd_losses={"card": card["prograd_losses"],
+                         "cpu": cpu["prograd_losses"]},
+         prograd_cos={"card": card["prograd_cos"], "cpu": cpu["prograd_cos"]},
+         grad_max_rel_diff=rel, rtol=TRAIN_GRAD_RTOL)
+    bad = [k for k, r in rel.items() if not (
+        math.isfinite(r) and r <= TRAIN_GRAD_RTOL
+        and float(cpu["grads"][k].abs().max()) > 0)]
+    # the two checkpointed chunks ran on each device; on the card K1 ran in
+    # every text layer of each chunk twice (forward and recompute) and in
+    # the vision tower once, K2 in every text layer of each chunk
+    n = cfg.transformer_layers
+    if (bad or chunks != [10, 1, 10, 1] or card["cocoop_launches"]
+            != (cfg.vision_layers + 2 * 2 * n, 2 * n)):
+        raise AssertionError(f"fanout_check: gradients {bad} differ beyond "
+                             f"{TRAIN_GRAD_RTOL} ({rel}); chunks {chunks}; "
+                             f"launches {card['cocoop_launches']}")
 
 
 class ShapeRecorder:
@@ -1861,6 +2189,7 @@ def main() -> int:
         k1_train, k2_train = run_train_path(k1, k2)
         k1_fp32, k2_fp32 = run_fp32_path(k1, k2)
         prompt = run_prompt_path(k1, k2)
+        fanout = run_fanout_path(k1, k2, k3)
         k1_serve, k3_serve = run_serve_path(k1, k3)
         k4_probe, probe_rows = run_probe_path()
     finally:
@@ -1886,6 +2215,7 @@ def main() -> int:
     timed(check_towers, device)
     timed(check_train_step, device)
     timed(check_prompt_step, device)
+    timed(check_fanout_step, device)
     timed(check_serve_tower, device)
     emit("check_seconds", **seconds)
 
@@ -1896,47 +2226,53 @@ def main() -> int:
         _kernel_entry(
             "mha_qkv_fwd", "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:36",
-            k1_main + k1_train + prompt["mha_qkv_fwd"] + k1_serve,
+            k1_main + k1_train + prompt["mha_qkv_fwd"]
+            + fanout["mha_qkv_fwd"] + k1_serve,
             of(cases_fwd, "bfloat16"), dtype="bfloat16",
             launches_by_path={"main_path": k1_main, "train_path": k1_train,
                               "fp32_path": 0,
                               "prompt_path": prompt["mha_qkv_fwd"],
+                              "fanout_path": fanout["mha_qkv_fwd"],
                               "serve_path": k1_serve, "probe_path": 0}),
         _kernel_entry(
             "mha_qkv_fwd_f32",
             "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:36",
-            k1_fp32 + prompt["mha_qkv_fwd_f32"], of(cases_fwd, "float32"),
-            dtype="float32",
+            k1_fp32 + prompt["mha_qkv_fwd_f32"] + fanout["mha_qkv_fwd_f32"],
+            of(cases_fwd, "float32"), dtype="float32",
             launches_by_path={"main_path": 0, "train_path": 0,
                               "fp32_path": k1_fp32,
                               "prompt_path": prompt["mha_qkv_fwd_f32"],
+                              "fanout_path": fanout["mha_qkv_fwd_f32"],
                               "serve_path": 0, "probe_path": 0}),
         _kernel_entry(
             "mha_qkv_bwd", "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
-            k2_train + prompt["mha_qkv_bwd"], of(cases_bwd, "bfloat16"),
-            dtype="bfloat16",
+            k2_train + prompt["mha_qkv_bwd"] + fanout["mha_qkv_bwd"],
+            of(cases_bwd, "bfloat16"), dtype="bfloat16",
             launches_by_path={"main_path": 0, "train_path": k2_train,
                               "fp32_path": 0,
                               "prompt_path": prompt["mha_qkv_bwd"],
+                              "fanout_path": fanout["mha_qkv_bwd"],
                               "serve_path": 0, "probe_path": 0}),
         _kernel_entry(
             "mha_qkv_bwd_f32",
             "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
-            k2_fp32 + prompt["mha_qkv_bwd_f32"], of(cases_bwd, "float32"),
-            dtype="float32",
+            k2_fp32 + prompt["mha_qkv_bwd_f32"] + fanout["mha_qkv_bwd_f32"],
+            of(cases_bwd, "float32"), dtype="float32",
             launches_by_path={"main_path": 0, "train_path": 0,
                               "fp32_path": k2_fp32,
                               "prompt_path": prompt["mha_qkv_bwd_f32"],
+                              "fanout_path": fanout["mha_qkv_bwd_f32"],
                               "serve_path": 0, "probe_path": 0}),
         _kernel_entry(
             "int8_matmul", "clip_calibration_tpu_torch/csrc/int8_matmul.cu",
             "clip_calibration_tpu/ops/pallas_int8_matmul.py:35",
-            k3_serve, cases_int8,
+            k3_serve + fanout["int8_matmul"], cases_int8,
             launches_by_path={"main_path": 0, "train_path": 0,
                               "fp32_path": 0, "prompt_path": 0,
+                              "fanout_path": fanout["int8_matmul"],
                               "serve_path": k3_serve, "probe_path": 0}),
         _kernel_entry(
             "int8_attention",
@@ -1944,7 +2280,8 @@ def main() -> int:
             "benchmarks/probe_int8_attention.py:69", k4_probe, cases_k4,
             launches_by_path={"main_path": 0, "train_path": 0,
                               "fp32_path": 0, "prompt_path": 0,
-                              "serve_path": 0, "probe_path": k4_probe},
+                              "fanout_path": 0, "serve_path": 0,
+                              "probe_path": k4_probe},
             variants={c["variant"]: {k: c[k] for k in (
                 "main_path_launches", "max_abs_err", "ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by")}

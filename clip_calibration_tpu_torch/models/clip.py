@@ -1,4 +1,5 @@
-"""CLIP dual-tower model (ViT image tower + text tower) as ``nn.Module``s.
+"""CLIP dual-tower model (ViT or ModifiedResNet image tower + text tower)
+as ``nn.Module``s.
 
 Mirrors ``clip_calibration_tpu/models/clip.py`` with PyTorch idiom: the
 towers are modules holding their parameters (frozen: the eval path never
@@ -7,6 +8,10 @@ package's — batch-first [B, L, D], matmul weights stored [in, out]
 (``x @ w``), patchify-as-matmul with (ph, pw, c) patch vectors — so the
 same flattened parameters load into either package
 (``models/weights.py::params_from_numpy``).
+
+The ResNet presets' image tower is ``models/resnet.py::ModifiedResNet``
+(NCHW convolutions; its parameters keep the JAX package's tree, the conv
+kernels carried HWIO <-> OIHW by ``models/weights.py``).
 
 Precision: matmul weights in the compute dtype (bf16, or fp32);
 LayerNorm, softmax, logits and embeddings in fp32.
@@ -21,6 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (causal_mask, layer_norm, multi_head_attention,
                              quick_gelu)
@@ -42,12 +48,14 @@ class CLIPConfig:
 
     @property
     def is_vit(self) -> bool:
-        # a ModifiedResNet tower (not ported) names its stages' depths
+        # a ModifiedResNet tower names its four stages' depths
         return isinstance(self.vision_layers, int)
 
     @property
     def vision_heads(self) -> int:
-        return self.vision_width // 64
+        if self.is_vit:
+            return self.vision_width // 64
+        return self.vision_width * 32 // 64
 
     @property
     def grid_size(self) -> int:
@@ -58,14 +66,23 @@ class CLIPConfig:
         return self.grid_size ** 2 + 1
 
 
-# ViT presets of the public OpenAI checkpoints, plus the tiny test backbone
-# (the ResNet towers are not ported yet)
+# presets of the public OpenAI checkpoints, plus the tiny test backbones
 PRESETS: Dict[str, CLIPConfig] = {
     "ViT-B/16": CLIPConfig(512, 224, 12, 768, 16, 512, 8, 12),
     "ViT-B/32": CLIPConfig(512, 224, 12, 768, 32, 512, 8, 12),
     "ViT-L/14": CLIPConfig(768, 224, 24, 1024, 14, 768, 12, 12),
     "ViT-L/14@336px": CLIPConfig(768, 336, 24, 1024, 14, 768, 12, 12),
+    "RN50": CLIPConfig(1024, 224, (3, 4, 6, 3), 64, None, 512, 8, 12),
+    "RN101": CLIPConfig(512, 224, (3, 4, 23, 3), 64, None, 512, 8, 12),
+    # width and resolution scaled jointly (reference clip/clip.py:30-39)
+    "RN50x4": CLIPConfig(640, 288, (4, 6, 10, 6), 80, None, 640, 10, 12),
+    "RN50x16": CLIPConfig(768, 384, (6, 8, 18, 8), 96, None, 768, 12, 12),
+    "RN50x64": CLIPConfig(1024, 448, (3, 15, 36, 10), 128, None,
+                          1024, 16, 12),
     "ViT-Test": CLIPConfig(32, 32, 2, 64, 8, 64, 4, 2),
+    # ModifiedResNet at (1, 1, 1, 1) depth: stem /4, then 3 strided stages
+    # -> a 1x1 attention-pool grid at 32 px
+    "RN-Test": CLIPConfig(32, 32, (1, 1, 1, 1), 8, None, 64, 4, 2),
 }
 
 
@@ -180,7 +197,11 @@ class CLIP(nn.Module):
                  device="cuda"):
         super().__init__()
         self.cfg = cfg
-        self.visual = VisionTower(cfg, dtype, device)
+        if cfg.is_vit:
+            self.visual = VisionTower(cfg, dtype, device)
+        else:
+            from .resnet import ModifiedResNet
+            self.visual = ModifiedResNet(cfg, dtype, device)
         self.text = TextTower(cfg, dtype, device)
         self.logit_scale = _param((), torch.float32, device)
 
@@ -214,19 +235,25 @@ def init_clip(model: CLIP, seed: int) -> CLIP:
 
     cfg = model.cfg
     v, t = model.visual, model.text
-    scale = cfg.vision_width ** -0.5
-    normal(v.patch_kernel, scale)
-    normal(v.class_embedding, scale)
-    normal(v.positional_embedding, scale)
-    blocks(v.blocks, cfg.vision_width)
-    normal(v.proj, scale)
+    if cfg.is_vit:
+        scale = cfg.vision_width ** -0.5
+        normal(v.patch_kernel, scale)
+        normal(v.class_embedding, scale)
+        normal(v.positional_embedding, scale)
+        blocks(v.blocks, cfg.vision_width)
+        normal(v.proj, scale)
+        for ln in (v.ln_pre, v.ln_post):
+            ln.scale.fill_(1.0)
+            ln.bias.zero_()
+    else:
+        from .resnet import init_modified_resnet
+        init_modified_resnet(v, gen)
     normal(t.token_embedding, 0.02)
     normal(t.positional_embedding, 0.01)
     blocks(t.blocks, cfg.transformer_width)
     normal(t.text_projection, cfg.transformer_width ** -0.5)
-    for ln in (v.ln_pre, v.ln_post, t.ln_final):
-        ln.scale.fill_(1.0)
-        ln.bias.zero_()
+    t.ln_final.scale.fill_(1.0)
+    t.ln_final.bias.zero_()
     model.logit_scale.fill_(math.log(1 / 0.07))
     return model
 
@@ -239,7 +266,8 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
                 mask: Optional[torch.Tensor] = None, qmode: str = "dequant",
                 collect_act_stats: bool = False, *,
                 deep_prompts: Optional[torch.Tensor] = None,
-                deep_prompt_depth: int = 0, text_side: bool = False):
+                deep_prompt_depth: int = 0, text_side: bool = False,
+                remat: bool = False):
     """Run the residual blocks over x [B, L, D].
 
     deep_prompts: [rows, n_ctx, D] per-layer prompt tokens. Layer i in
@@ -262,6 +290,11 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
     run over them) as [n_layers] tensors, ``{"attn": {"wqkv", "wo"},
     "mlp": {"w_fc", "w_proj"}}``: the calibration capture of static w8a8.
     Return becomes ``(out, stats)``.
+    remat: checkpoint each layer (``torch.utils.checkpoint``, non-reentrant;
+    the JAX package's ``jax.checkpoint`` on the scan body): under autograd
+    only the layer inputs are kept, and the backward runs each layer's
+    forward again (K1 included) before its backward. Same values and
+    gradients; memory for the large text fan-outs.
     """
     transformer.forwards += 1
     L = x.shape[1]
@@ -291,7 +324,11 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
             prompt = deep_prompts[i - 1] if i - 1 < rows else zeros
             x = (_splice_text(x, prompt) if text_side
                  else _splice_vision(x, prompt, L))
-        x = block(x, n_heads, mask, qmode=qmode, stats=stats)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, n_heads, mask, qmode=qmode,
+                           stats=stats, use_reentrant=False)
+        else:
+            x = block(x, n_heads, mask, qmode=qmode, stats=stats)
     x = x[:, :L] if Lp != L else x
     if not collect_act_stats:
         return x
@@ -336,7 +373,7 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
                          qmode: str = "dequant",
                          collect_act_stats: bool = False, *,
                          deep_prompts: Optional[torch.Tensor] = None,
-                         deep_prompt_depth: int = 0):
+                         deep_prompt_depth: int = 0, remat: bool = False):
     """Text tower over pre-embedded prompts [N, 77, D] (the PromptLearner
     path, reference TextEncoder ``trainers/classification/coop.py:47-67``).
 
@@ -350,6 +387,8 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
     ``(features, stats)``.
     deep_prompts / deep_prompt_depth: per-layer text prompts spliced at
     positions [1, 1+n_ctx) (``transformer``).
+    remat: per-layer activation checkpointing (``transformer``), for the
+    gradient passes over large class/prompt fan-outs.
     """
     txt = model.text
     if seq_len is not None and seq_len < x.shape[1]:
@@ -364,7 +403,8 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
     x = transformer(txt.blocks, x, cfg.transformer_heads, mask, qmode=qmode,
                     collect_act_stats=collect_act_stats,
                     deep_prompts=deep_prompts,
-                    deep_prompt_depth=deep_prompt_depth, text_side=True)
+                    deep_prompt_depth=deep_prompt_depth, text_side=True,
+                    remat=remat)
     if collect_act_stats:
         x, blocks = x
     x = txt.ln_final(x)
@@ -427,14 +467,23 @@ def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
     collect_act_stats: also return the absmax of every quantized-matmul
     input (patchified pixels, the block sites of ``transformer``, the
     ln_post output feeding ``proj``) for static w8a8 calibration; return
-    becomes ``(features, stats)``."""
-    if not cfg.is_vit and (shallow_prompts is not None
-                           or deep_prompts is not None):
-        # the reference has no ResNet prompt path either; fail loudly
-        # instead of dropping the prompts
-        raise ValueError(
-            "Vision prompts are not supported with ResNet backbones; "
-            "use a ViT backbone for prompt-injection trainers")
+    becomes ``(features, stats)``; ViT only.
+
+    A ResNet preset runs ``models/resnet.py::ModifiedResNet`` (its convs,
+    BatchNorm and attention pool; ``qmode`` does not apply: the ResNet
+    tower is never quantized)."""
+    if not cfg.is_vit:
+        if collect_act_stats:
+            raise ValueError(
+                "activation-scale calibration covers the ViT towers only "
+                "(int8 quantization is ViT-only, ops/quant.py)")
+        if shallow_prompts is not None or deep_prompts is not None:
+            # the reference has no ResNet prompt path either; fail loudly
+            # instead of dropping the prompts
+            raise ValueError(
+                "Vision prompts are not supported with ResNet backbones; "
+                "use a ViT backbone for prompt-injection trainers")
+        return model.visual(images.to(dtype), cfg.vision_heads)
     vp = model.visual
     x = patchify(images.to(dtype), cfg.vision_patch_size)
     stats = {}

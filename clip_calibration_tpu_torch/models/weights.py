@@ -9,7 +9,12 @@
   written with numpy and ``torch.bfloat16`` views, so files move between
   the two packages.
 - ``convert_torch_clip``: OpenAI/reference CLIP state dict -> ``CLIP``
-  (shape-inference semantics of ``clip/model.py:656-699``; ViT only).
+  (shape-inference semantics of ``clip/model.py:656-699``), ViT or
+  ModifiedResNet.
+
+A ModifiedResNet tower's flat keys are the JAX package's tree with the
+blocks' list index as a path part (``visual/layer1/0/conv1``); its conv
+kernels are HWIO there and OIHW in the module (``_is_conv``).
 """
 
 from __future__ import annotations
@@ -48,6 +53,11 @@ def to_tensor(v) -> torch.Tensor:
     if str(v.dtype) == "bfloat16":
         return torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(v)
+
+
+def _is_conv(cfg: CLIPConfig, key: str, t) -> bool:
+    """A ModifiedResNet conv kernel: the only 4-d tensors of its tower."""
+    return not cfg.is_vit and key.startswith("visual/") and t.ndim == 4
 
 
 def _module_name(key: str, layer: Optional[int] = None) -> str:
@@ -127,6 +137,8 @@ def params_from_numpy(flat: Dict[str, Any], cfg: CLIPConfig,
 
     for key, value in flat.items():
         t = to_tensor(value)
+        if _is_conv(cfg, key, t):
+            t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
         if key.split("/")[1:2] == ["blocks"]:
             for i in range(t.shape[0]):
                 assign(_module_name(key, i), t[i])
@@ -154,7 +166,10 @@ def flat_params(model: CLIP) -> Dict[str, torch.Tensor]:
             key = "/".join(parts[:2] + parts[3:])
             stacked.setdefault(key, []).append(p.detach().cpu())
         else:
-            flat["/".join(parts)] = p.detach().cpu()
+            key = "/".join(parts)
+            t = p.detach().cpu()
+            flat[key] = (t.permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
+                         if _is_conv(model.cfg, key, t) else t)
     for key, layers in stacked.items():
         flat[key] = torch.stack(layers)
     return flat
@@ -194,17 +209,26 @@ def load_params(path: str) -> Dict[str, Any]:
 def config_from_torch_state_dict(sd: Dict[str, np.ndarray]) -> CLIPConfig:
     """Infer architecture hyperparams from tensor shapes (parity with
     reference ``build_model``, ``clip/model.py:656-680``)."""
-    if "visual.proj" not in sd:
-        raise ValueError("only ViT CLIP checkpoints are supported")
-    vision_width = sd["visual.conv1.weight"].shape[0]
-    vision_layers = len([k for k in sd if k.startswith("visual.")
-                         and k.endswith(".attn.in_proj_weight")])
-    vision_patch_size = sd["visual.conv1.weight"].shape[-1]
-    grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    if "visual.proj" in sd:
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_layers = len([k for k in sd if k.startswith("visual.")
+                             and k.endswith(".attn.in_proj_weight")])
+        vision_patch_size = sd["visual.conv1.weight"].shape[-1]
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1)
+                     ** 0.5)
+        image_resolution = vision_patch_size * grid
+    else:
+        vision_layers = tuple(
+            len({k.split(".")[2] for k in sd
+                 if k.startswith(f"visual.layer{b}")}) for b in (1, 2, 3, 4))
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        vision_patch_size = None
+        image_resolution = 32 * round(
+            (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
     transformer_width = sd["ln_final.weight"].shape[0]
     return CLIPConfig(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=vision_patch_size * grid,
+        image_resolution=image_resolution,
         vision_layers=vision_layers,
         vision_width=vision_width,
         vision_patch_size=vision_patch_size,
@@ -227,29 +251,39 @@ def torch_state_dict_to_flat(sd: Dict[str, Any], cfg: CLIPConfig
                              ) -> Dict[str, np.ndarray]:
     """OpenAI state dict -> the JAX package's flat fp32 layout."""
     f32 = np.float32
-    p = cfg.vision_patch_size
-    conv1 = sd["visual.conv1.weight"].astype(f32)  # [vw, 3, p, p]
-    flat = {
-        # -> [(ph, pw, c), vw] to match patchify()'s patch vector order
-        "visual/patch_kernel":
-            conv1.transpose(2, 3, 1, 0).reshape(p * p * 3, -1),
-        "visual/class_embedding": sd["visual.class_embedding"],
-        "visual/positional_embedding": sd["visual.positional_embedding"],
-        "visual/ln_pre/scale": sd["visual.ln_pre.weight"],
-        "visual/ln_pre/bias": sd["visual.ln_pre.bias"],
-        "visual/ln_post/scale": sd["visual.ln_post.weight"],
-        "visual/ln_post/bias": sd["visual.ln_post.bias"],
-        "visual/proj": sd["visual.proj"],
+    if cfg.is_vit:
+        p = cfg.vision_patch_size
+        conv1 = sd["visual.conv1.weight"].astype(f32)  # [vw, 3, p, p]
+        flat = {
+            # -> [(ph, pw, c), vw] to match patchify()'s patch vector order
+            "visual/patch_kernel":
+                conv1.transpose(2, 3, 1, 0).reshape(p * p * 3, -1),
+            "visual/class_embedding": sd["visual.class_embedding"],
+            "visual/positional_embedding":
+                sd["visual.positional_embedding"],
+            "visual/ln_pre/scale": sd["visual.ln_pre.weight"],
+            "visual/ln_pre/bias": sd["visual.ln_pre.bias"],
+            "visual/ln_post/scale": sd["visual.ln_post.weight"],
+            "visual/ln_post/bias": sd["visual.ln_post.bias"],
+            "visual/proj": sd["visual.proj"],
+        }
+        towers = (("visual", "visual.transformer.resblocks",
+                   cfg.vision_layers),
+                  ("text", "transformer.resblocks", cfg.transformer_layers))
+    else:
+        from .resnet import convert_torch_resnet
+        flat = convert_torch_resnet(sd, cfg)
+        towers = (("text", "transformer.resblocks",
+                   cfg.transformer_layers),)
+    flat.update({
         "text/token_embedding": sd["token_embedding.weight"],
         "text/positional_embedding": sd["positional_embedding"],
         "text/ln_final/scale": sd["ln_final.weight"],
         "text/ln_final/bias": sd["ln_final.bias"],
         "text/text_projection": sd["text_projection"],
         "logit_scale": sd["logit_scale"],
-    }
-    for tower, prefix, n in (
-            ("visual", "visual.transformer.resblocks", cfg.vision_layers),
-            ("text", "transformer.resblocks", cfg.transformer_layers)):
+    })
+    for tower, prefix, n in towers:
         for leaf, name, transpose in _BLOCK_LEAVES:
             arrs = [sd[f"{prefix}.{i}.{name}"] for i in range(n)]
             flat[f"{tower}/blocks/{leaf}"] = np.stack(

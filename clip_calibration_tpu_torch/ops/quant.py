@@ -30,9 +30,10 @@ package's bits at fp32:
   card one launch of kernel K3, the rescale in its epilogue, the weight's
   ``kmajor`` copy passed).
 
-The text-tower calibration (``calibrate_text_act_scales``,
-``attach_text_act_scales``) serves only trainers that are not ported yet
-(CoCoOp, ProDA) and comes with them.
+The text tower's static scales (``calibrate_text_act_scales``,
+``attach_text_act_scales``) serve the eval-time text fan-out of CoCoOp and
+ProDA (``TRAINER.QUANT_EVAL_TEXT``). Only ViT image towers quantize: a
+ModifiedResNet tower raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -182,6 +183,10 @@ def quantize_clip_params(model, towers=("visual",)):
     per-request hot path; text encodes once per class set)."""
     new = _shallow(model)
     if "visual" in towers:
+        if not model.cfg.is_vit:
+            raise ValueError(
+                "int8 weight quantization covers the ViT towers only; "
+                "serve ResNet backbones unquantized")
         v = _shallow(model.visual)
         _replace(v, "patch_kernel", quantize_int8(model.visual.patch_kernel))
         _replace(v, "proj", quantize_int8(model.visual.proj))
@@ -271,14 +276,54 @@ def attach_act_scales(qmodel, stats):
              _with_act_scale(qmodel.visual.patch_kernel,
                              stats["patch_kernel"]))
     _replace(v, "proj", _with_act_scale(qmodel.visual.proj, stats["proj"]))
-    blocks = _copy_blocks(qmodel.visual.blocks)
+    v._modules["blocks"] = _blocks_with_act_scales(qmodel.visual.blocks,
+                                                   stats["blocks"])
+    new._modules["visual"] = v
+    return new
+
+
+def _blocks_with_act_scales(blocks: nn.ModuleList, stats) -> nn.ModuleList:
+    """Copy of quantized blocks whose every ``QuantizedWeight`` carries the
+    static scale of its layer's absmax in ``stats[outer][key]`` ([L])."""
+    blocks = _copy_blocks(blocks)
     for i, block in enumerate(blocks):
         for outer, key in BLOCK_WEIGHTS:
             sub = getattr(block, outer)
-            amax = stats["blocks"][outer][key][i]
-            _replace(sub, key, _with_act_scale(getattr(sub, key), amax))
-    v._modules["blocks"] = blocks
-    new._modules["visual"] = v
+            _replace(sub, key, _with_act_scale(getattr(sub, key),
+                                               stats[outer][key][i]))
+    return blocks
+
+
+@torch.no_grad()
+def calibrate_text_act_scales(qmodel, cfg, prompts: torch.Tensor,
+                              eot_pos: torch.Tensor, seq_len=None):
+    """Per-site activation absmax of the TEXT tower over embedded prompts
+    [N, 77, D] (``models/clip.py::encode_text_embedded(collect_act_stats=
+    True)``), with the quantized weights in weight-only mode. The inputs
+    are the trainer's learned prompt rows (``_text_calibration_prompts``),
+    so the scales follow from the checkpoint alone. Returns the stats
+    pytree ``attach_text_act_scales`` takes: ``text_projection`` 0-d, the
+    block sites [L]."""
+    from ..models import clip as M
+
+    _, stats = M.encode_text_embedded(qmodel, cfg, prompts, eot_pos,
+                                      seq_len=seq_len, qmode="dequant",
+                                      collect_act_stats=True)
+    return stats
+
+
+def attach_text_act_scales(qmodel, stats):
+    """Copy of a text-quantized ``CLIP`` with a static ``act_scale`` on
+    every text ``QuantizedWeight`` (the text twin of
+    ``attach_act_scales``; the int8 weights and scales are shared)."""
+    new = _shallow(qmodel)
+    t = _shallow(qmodel.text)
+    _replace(t, "text_projection",
+             _with_act_scale(qmodel.text.text_projection,
+                             stats["text_projection"]))
+    t._modules["blocks"] = _blocks_with_act_scales(qmodel.text.blocks,
+                                                   stats["blocks"])
+    new._modules["text"] = t
     return new
 
 

@@ -10,5 +10,8 @@ from . import promptsrc  # noqa: F401
 from . import vpt  # noqa: F401
 from . import taskres  # noqa: F401
 from . import clip_adapter  # noqa: F401
+from . import cocoop  # noqa: F401
+from . import prograd  # noqa: F401
+from . import proda  # noqa: F401
 from .calibration import tempscaling  # noqa: F401
 from .calibration import parameterized_tempscaling  # noqa: F401

@@ -237,12 +237,21 @@ class VLBaseLearner(TrainerX):
               f"(TRAINER.QUANT_FROZEN_VISION)")
 
     # -- quantized eval-time text fan-out (TRAINER.QUANT_EVAL_TEXT) --------
+    #: True on trainers whose EVAL re-runs the text tower per request
+    #: (CoCoOp's per-image class encodes, ProDA's set_classifier sweep);
+    #: the one-shot class features of the CoOp family stay full precision
+    text_eval_quant_supported = False
+    #: "", "int8" (weight-only) or "w8a8" (static calibrated scales); set
+    #: by setup_eval_text_quant from TRAINER.QUANT_EVAL_TEXT
+    text_eval_quant = ""
+
     def setup_eval_text_quant(self):
-        """Validate ``TRAINER.QUANT_EVAL_TEXT`` ('', 'int8' or 'w8a8'). It
-        applies to the trainers whose eval re-runs the text tower per
-        request (CoCoOp, ProDA: not ported yet); every ported trainer
-        encodes its class features once, so any mode raises here, as it
-        does for them in the JAX package."""
+        """Validate ``TRAINER.QUANT_EVAL_TEXT`` ('', 'int8' or 'w8a8') and
+        turn it on for the trainers that support it. Eval runs no
+        gradients, so the per-request text encodes may run int8 (K3 under
+        w8a8) while every train step keeps the full-precision text tower
+        its prompts' gradients flow through. Called from
+        ``setup_frozen_vision``, so every trainer validates the flag."""
         mode = self.cfg.TRAINER.QUANT_EVAL_TEXT
         if not mode:
             return
@@ -250,10 +259,52 @@ class VLBaseLearner(TrainerX):
             raise ValueError(
                 f"TRAINER.QUANT_EVAL_TEXT={mode!r}: expected '', "
                 "'int8' or 'w8a8'")
-        raise ValueError(
-            f"{type(self).__name__} encodes its class features once per "
-            "eval — TRAINER.QUANT_EVAL_TEXT applies to the per-request "
-            "text fan-out trainers (CoCoOp, ProDA) only")
+        if not self.text_eval_quant_supported:
+            raise ValueError(
+                f"{type(self).__name__} encodes its class features once "
+                "per eval — TRAINER.QUANT_EVAL_TEXT applies to the "
+                "per-request text fan-out trainers (CoCoOp, ProDA) only")
+        self.text_eval_quant = mode
+        self._eval_text_params = None
+        print(f"Eval text fan-out quantized: mode={mode} "
+              f"(TRAINER.QUANT_EVAL_TEXT)")
+
+    def text_eval_qmode(self) -> str:
+        """The text encodes' qmode under ``text_eval_quant`` ("dequant"
+        runs the weight-only int8 weights at full-precision math)."""
+        return "w8a8" if self.text_eval_quant == "w8a8" else "dequant"
+
+    def invalidate_eval_text_quant(self):
+        """Drop the cached quantized text tower: call after any change of
+        the learned prompts (the w8a8 scales are calibrated on them)."""
+        self._eval_text_params = None
+
+    @torch.no_grad()
+    def eval_text_clip_params(self):
+        """The frozen CLIP for eval-time text encodes: ``step_clip_params``
+        with the text tower's matmul weights int8, plus static activation
+        scales under "w8a8", calibrated on the trainer's own prompt rows
+        (``_text_calibration_prompts``). Made at first use, remade after
+        ``invalidate_eval_text_quant``."""
+        q = getattr(self, "_eval_text_params", None)
+        if q is not None:
+            return q
+        from ..ops import quant as Q
+        q = Q.quantize_clip_params(self.step_clip_params, towers=("text",))
+        if self.text_eval_quant == "w8a8":
+            prompts, eots, seq_len = self._text_calibration_prompts()
+            q = Q.attach_text_act_scales(q, Q.calibrate_text_act_scales(
+                q, self.clip_cfg, prompts, eots, seq_len=seq_len))
+        self._eval_text_params = q
+        return q
+
+    def _text_calibration_prompts(self):
+        """(embedded prompts [N, 77, D], eot_pos [N], seq_len) for the
+        text activation-scale calibration; the supporting trainers
+        override it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} supports TRAINER.QUANT_EVAL_TEXT "
+            "but provides no calibration prompts")
 
     # -- cache paths (reference base_learner.py:106-108,123-134) ------------
     def _base_feature_dir(self, subsample: str) -> str:

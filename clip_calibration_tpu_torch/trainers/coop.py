@@ -207,7 +207,8 @@ class CoOp(VLBaseLearner):
         position = tcfg.get("CLASS_TOKEN_POSITION", "end")
         asm = build_prompt_assembly(classnames, tcfg.N_CTX, position,
                                     ctx_init, self.clip_model,
-                                    self.compute_dtype)
+                                    self.compute_dtype,
+                                    **self._assembly_extra())
         self.asm = asm
         n_ctx = asm["n_ctx"]
         ctx_dim = self.clip_cfg.transformer_width
@@ -244,6 +245,11 @@ class CoOp(VLBaseLearner):
         if ctx_init is False:
             return ""
         return ctx_init
+
+    def _assembly_extra(self) -> dict:
+        """Subclass hook: extra ``build_prompt_assembly`` arguments
+        (ProGrad's tail-initialized context)."""
+        return {}
 
     def _text_features(self, ctx):
         """Class text features of ``ctx`` (unnormalized; differentiable

@@ -2,7 +2,8 @@
 trains 2 epochs on the synthetic dataset with the tiny backbone through
 ``clip_calibration_tpu_torch.train --device cpu``, evaluates through the
 calibration pipeline and logs finite losses; then a VPT eval on the new
-classes with DAC, and ParameterizedTempScaling over a CoOp base."""
+classes with DAC, ParameterizedTempScaling over a CoOp base, and CoOp on
+the ModifiedResNet tower (RN-Test)."""
 
 import json
 import os
@@ -33,6 +34,13 @@ EXTRA = {
                   "TRAINER.PROMPTSRC.PROMPT_DEPTH_TEXT", "2",
                   "TRAINER.PROMPTSRC.GPA_MEAN", "1",
                   "TRAINER.PROMPTSRC.GPA_STD", "1"],
+    "CoCoOp": ["TRAINER.COCOOP.N_CTX", "4"],
+    # tiny N_CTX takes the random init: the reference's CTX_INIT embeds the
+    # dataset template (6 words for Synthetic) and asserts N_CTX >= 6
+    "ProGrad": ["TRAINER.PROGRAD.N_CTX", "4", "TRAINER.PROGRAD.CTX_INIT",
+                "False"],
+    "ProDA": ["TRAINER.PRODA.N_PROMPT", "8", "TRAINER.PRODA.PROMPT_BS", "4",
+              "TRAINER.PRODA.N_CTX", "4"],
 }
 
 
@@ -67,7 +75,8 @@ def _check_log(path):
 
 
 @pytest.mark.parametrize("trainer", ["KgCoOp", "CLIP_Adapter", "VPT",
-                                     "TaskRes", "PromptSRC", "MaPLe"])
+                                     "TaskRes", "PromptSRC", "MaPLe",
+                                     "CoCoOp", "ProGrad", "ProDA"])
 def test_trainer_smoke(workdir, trainer):
     _run(["--root", "data", "--trainer", trainer, "--output-dir",
           f"output/{trainer}/seed1"] + BASE + OPTS + EXTRA.get(trainer, []))
@@ -113,3 +122,19 @@ def test_parameterized_tempscaling_over_coop(workdir):
                             "model-calibrated.pth.tar-5")["state_dict"]
     assert sorted(state) == ["b_in", "b_out", "bs", "s0", "w_in", "w_out",
                              "ws"]
+
+
+def test_trainer_smoke_resnet_backbone(workdir):
+    """CoOp end to end on the ModifiedResNet tower (RN-Test): the
+    attention-pooled image features through the CLI and the calibration
+    pipeline. Its own zero-shot base run: the feature caches are keyed by
+    backbone."""
+    rn_base = [a if a != "ViT-Test" else "RN-Test" for a in BASE]
+    _run(["--root", "data", "--trainer", "ZeroshotCLIP", "--output-dir",
+          "output/zs_rn/seed1"] + rn_base + OPTS)
+    _run(["--root", "data", "--trainer", "CoOp", "--output-dir",
+          "output/CoOp_rn/seed1"] + rn_base + OPTS
+         + ["TRAINER.COOP.N_CTX", "4"])
+    log = _check_log("output/CoOp_rn/seed1/log.txt")
+    losses = [float(m) for m in re.findall(r"loss (\d+\.\d+) \(", log)]
+    assert losses and all(l == l and l != float("inf") for l in losses)
