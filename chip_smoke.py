@@ -88,6 +88,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    launched 50 times per w8a8 image forward (one count a product, the
    rescale in its epilogue or, where K is split, in a second kernel),
    every launch with the weight's K-major copy, and K1 in every layer.
+7b. ``mesh_path``: multi-process runs (``parallel/``). (a) The port's CLI
+   with ``TPU.DISTRIBUTED True`` at one rank, NCCL on the card: golden
+   stage 1 (its ``=> result`` block byte for byte main_path's) and 3 CoOp
+   steps; one NCCL ``all_reduce`` on the card. (b) Two ranks sharing the
+   card over gloo (this script again, ``--mesh-worker``): a probe of
+   gloo's ``all_reduce`` / ``all_gather`` / ``broadcast`` on CUDA tensors,
+   then at ViT-B/16 (bf16, seeded random init) a data-parallel CoOp step
+   at batch 32 on mesh (2, 1) (again at fp32: the fp32 K1 and K2, a tight
+   tolerance), CoCoOp and ProDA class-sharded steps on
+   (1, 2) at their published configs (ProDA's classifier then on the w8a8
+   text tower), and a tensor-parallel Predictor encode on (1, 2); each
+   held to the same work on one rank (``MESH_*`` tolerances). Fails if
+   either rank fails or launches none of K1, K2 and K3; the ranks' calls
+   by shape join the kernel checks (K1 at the TP shape [32, 208, 1152]
+   with 6 heads and at the class-sharded text shapes).
 8. ``probe_path``: the port's int8 attention probe
    (``probe_int8_attention``) at its default full width (B 256, L 208,
    D 768, H 12), each variant on K4, one row a variant; asserts K4
@@ -1138,6 +1153,440 @@ def run_fanout_path(k1, k2, k3):
             "mha_qkv_bwd_f32": of(k2d, "float32"), "int8_matmul": k3n}
 
 
+# ---------------------------------------------------------------------------
+# mesh_path: multi-process runs (parallel/mesh.py, parallel/tp.py)
+# ---------------------------------------------------------------------------
+
+#: mesh_path's two ranks share the one card over gloo, bf16, ViT-B/16. Each
+#: check holds the mesh's numbers to the same work on one rank (every rank
+#: recomputes it without a mesh). The two differ in summation order (the
+#: mesh sums partial gradients over the ranks, TP sums two partial
+#: products in bf16) and in the row counts each matmul runs at (cuBLAS may
+#: pick another algorithm, so a bf16 output may round 1 ulp, 2^-8
+#: relative, apart), through 12 layers each way: loss |diff| / |one rank|
+MESH_LOSS_RTOL = 1e-2
+#: every trainable's gradient: max |diff| / max |one rank|
+MESH_GRAD_RTOL = 5e-2
+#: the same DP CoOp step at fp32 (the golden-parity precision, TF32 off):
+#: the sums alone differ in order, so loss and gradient hold tightly
+MESH_FP32_LOSS_RTOL = 1e-5
+MESH_FP32_GRAD_RTOL = 1e-4
+#: features (the TP vision tower; the w8a8 class-sharded classifier),
+#: per row: 1 - cos(mesh, one rank); SERVE_COS_TOL's bound, whose w8a8
+#: rounding-boundary steps the bf16 ulps above can also trigger
+MESH_COS_TOL = 1e-3
+
+
+def _mask_key(mask) -> list:
+    """A tower mask as [kind, real length, padded length]; must be the
+    ``pad_mask`` of those (the parent rebuilds it from them)."""
+    kind, real = mask_kind(mask)
+    L = mask.shape[0]
+    if not bool((mask == pad_mask(real, L, "causal" in kind,
+                                  mask.device)).all()):
+        raise AssertionError(f"an unexpected mask of kind {kind}")
+    return [kind, real, L]
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _cos_gap(a, b) -> float:
+    import torch
+    return float((1 - torch.nn.functional.cosine_similarity(
+        a.float(), b.float(), dim=-1)).max())
+
+
+def _mesh_trainer(name, config, shots, mesh_shape, out_dir, device,
+                  opts=()):
+    """A trainer of the port at its published ViT-B/16 config (bf16,
+    seeded random init) on the synthetic base classes, on a mesh."""
+    from clip_calibration_tpu_torch.config import get_cfg_default
+    from clip_calibration_tpu_torch.data.base import set_random_seed
+    from clip_calibration_tpu_torch.engine.registry import TRAINER_REGISTRY
+    import clip_calibration_tpu_torch.data.datasets  # noqa: F401
+    import clip_calibration_tpu_torch.evaluators.vl_evaluator  # noqa: F401
+    import clip_calibration_tpu_torch.trainers  # noqa: F401
+    cfg = get_cfg_default()
+    cfg.merge_from_file(osp.join(ROOT, "configs", "datasets",
+                                 "synthetic.yaml"))
+    cfg.merge_from_file(osp.join(ROOT, "configs", "trainers", config))
+    cfg.merge_from_list(["DATASET.ROOT", osp.join(WORK, "data"),
+                         "DATASET.NUM_SHOTS", shots,
+                         "DATASET.SUBSAMPLE_CLASSES", "base", "SEED", 1,
+                         "OUTPUT_DIR", out_dir, "TRAINER.NAME", name,
+                         "TEST.EVALUATOR", "VLClassification",
+                         "TPU.MESH_SHAPE", tuple(mesh_shape), *opts])
+    cfg.freeze()
+    set_random_seed(1)
+    return TRAINER_REGISTRY.get(name)(cfg, device=device)
+
+
+def _gloo_probe(device) -> dict:
+    """all_reduce, all_gather and broadcast on CUDA tensors over gloo, the
+    three collectives the port uses, in both dtypes; each result held to
+    the expected values."""
+    import torch
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.full((1024,), 1.0 + rank, dtype=dtype, device=device)
+        dist.all_reduce(t)
+        parts = [torch.empty(8, dtype=dtype, device=device)
+                 for _ in range(2)]
+        dist.all_gather(parts, torch.full((8,), float(rank), dtype=dtype,
+                                          device=device))
+        b = torch.full((8,), float(rank), dtype=dtype, device=device)
+        dist.broadcast(b, src=1)
+        ok = (bool((t == 3).all()) and bool((parts[0] == 0).all())
+              and bool((parts[1] == 1).all()) and bool((b == 1).all()))
+        out[str(dtype).split(".")[-1]] = ok
+    if not all(out.values()):
+        raise AssertionError(f"gloo collectives on CUDA tensors: {out}")
+    return out
+
+
+def _step_check(name, trainer, images, labels, *extra,
+                loss_rtol=MESH_LOSS_RTOL, grad_rtol=MESH_GRAD_RTOL) -> dict:
+    from clip_calibration_tpu_torch.parallel import dryrun as D
+    r = D.trainer_step_check(trainer, images, labels, *extra)
+    (lm, l1), grads = r["loss"], r["grads"]
+    # a leaf whose gradient is zero on one rank (a dead ReLU of CoCoOp's
+    # meta-net) must be zero on the mesh too
+    rec = {"loss": [lm, l1], "loss_rel": abs(lm - l1) / abs(l1),
+           "grad_rel": {k: float(abs(a - b).max() / max(abs(b).max(),
+                                                        1e-30))
+                        for k, (a, b) in grads.items()}}
+    rec["ok"] = bool(math.isfinite(lm) and rec["loss_rel"] <= loss_rtol
+                     and all(math.isfinite(v) and v <= grad_rtol
+                             for v in rec["grad_rel"].values()))
+    if not rec["ok"]:
+        raise AssertionError(f"mesh_path {name}: {rec}")
+    return rec
+
+
+def mesh_worker(rank: int, port: int, out_path: str,
+                device_type: str = "cuda") -> None:
+    """One of mesh_path's two ranks (``chip_smoke.py --mesh-worker RANK
+    PORT OUT``): gloo on the shared card, the dry run's pieces at ViT-B/16
+    (bf16, seeded random init), each held to one rank; writes its results
+    and its kernels' launches by shape to ``out_path`` as JSON."""
+    import numpy as np
+    import torch
+    from clip_calibration_tpu_torch.data.datasets.synthetic import _classname
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.ops import attention
+    from clip_calibration_tpu_torch.ops import int8_matmul as int8_ops
+    from clip_calibration_tpu_torch.ops import mha_qkv as kernels
+    from clip_calibration_tpu_torch.parallel import dryrun as D
+    from clip_calibration_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh)
+    from clip_calibration_tpu_torch.serving import Predictor
+    os.environ.update(CC_COORD_ADDR=f"localhost:{port}", CC_NUM_PROCS="2",
+                      CC_PROC_ID=str(rank))
+    initialize_distributed(backend="gloo", device=device_type)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if device_type == "cuda" else torch.device("cpu"))
+    work = osp.join(WORK, "mesh", f"rank{rank}")
+    os.makedirs(work, exist_ok=True)
+    os.chdir(work)  # this rank's ./temp caches
+    k1 = Recorder(kernels.mha_qkv)
+    k2 = Recorder(kernels.mha_qkv_bwd)
+    k3 = ShapeRecorder(int8_ops.kernel_product)
+    attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
+        k1, k2, k3
+    res = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size()}
+    seconds = {}
+    t0 = time.perf_counter()
+    res["gloo_cuda_collectives"] = _gloo_probe(device)
+    rng = np.random.default_rng(5)
+
+    def batch(n, n_cls):
+        images = torch.as_tensor(rng.integers(0, 256, (n, 224, 224, 3),
+                                              dtype=np.uint8), device=device)
+        return images, rng.integers(0, n_cls, n)
+
+    # (check, trainer, published config, shots, mesh, opts, tolerances)
+    coop = "CoOp/vit_b16_c16_ep200_batch32.yaml"
+    fp32 = {"loss_rtol": MESH_FP32_LOSS_RTOL,
+            "grad_rtol": MESH_FP32_GRAD_RTOL}
+    checks = [
+        ("CoOp", "CoOp", coop, 16, (2, 1), [], {}),
+        ("CoOp_fp32", "CoOp", coop, 16, (2, 1),
+         ["MODEL.PRECISION", "fp32", "TRAINER.COOP.PREC", "fp32"], fp32),
+        ("CoCoOp", "CoCoOp", "CoCoOp/vit_b16_c4_ep10_batch1.yaml", 1,
+         (1, 2), [], {}),
+        ("ProDA", "ProDA", "ProDA/vit_b16_c16_ep100_batch4.yaml", 1, (1, 2),
+         ["TRAINER.QUANT_EVAL_TEXT", "w8a8"], {}),
+    ]
+    try:
+        for name, trainer, config, shots, shape, opts, tol in checks:
+            t1 = time.perf_counter()
+            t = _mesh_trainer(trainer, config, shots, shape,
+                              osp.join(work, "out_" + name), device, opts)
+            images, labels = batch(t.cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+                                   t.num_classes)
+            extra = (np.arange(t.prompt_bs),) if name == "ProDA" else ()
+            rec = _step_check(name, t, images, labels, *extra, **tol)
+            rec["mesh"] = list(shape)
+            rec["batch"] = int(images.shape[0])
+            if name == "ProDA":
+                # the eval sweep on the int8 text tower (K3), classes over
+                # the model ranks, against one rank
+                with torch.no_grad():
+                    t.set_classifier()
+                    mesh_tf = t.text_features.clone()
+                    with D.one_rank(t):
+                        t.set_classifier()
+                    rec["classifier_cos_gap"] = _cos_gap(mesh_tf,
+                                                         t.text_features)
+                if not rec["classifier_cos_gap"] <= MESH_COS_TOL:
+                    raise AssertionError(f"mesh_path ProDA classifier: "
+                                         f"{rec}")
+            res[name] = rec
+            seconds[name] = time.perf_counter() - t1
+            del t
+        # a TP Predictor encode, mesh (1, 2): heads and hidden features
+        # over the two ranks (K1 at [B, 208, 1152], 6 heads)
+        t1 = time.perf_counter()
+        mesh = make_mesh((1, 2))
+        names = [_classname(c) for c in range(50)]
+        tp = Predictor("ViT-B/16", names, batch_size=32, mesh=mesh,
+                       device=device)
+        one = Predictor("ViT-B/16", names, batch_size=32, device=device)
+        images, _ = batch(32, 50)
+        p_tp, p_one = tp.predict(images.cpu().numpy())["probs"], \
+            one.predict(images.cpu().numpy())["probs"]
+        with torch.inference_mode():
+            x = tp._preprocess(images)
+            f_tp = M.encode_image(tp.model, tp.cfg, x, dtype=tp.dtype,
+                                  tp=tp.tp)
+            f_one = M.encode_image(one.model, one.cfg, x, dtype=one.dtype)
+        rec = {"mesh": [1, 2], "batch": 32,
+               "feature_cos_gap": _cos_gap(f_tp, f_one),
+               "probs_max_abs_diff": float(np.abs(p_tp - p_one).max()),
+               "top1_agreement": float((p_tp.argmax(1) == p_one.argmax(1))
+                                       .mean())}
+        if not (rec["feature_cos_gap"] <= MESH_COS_TOL
+                and np.isfinite(p_tp).all()):
+            raise AssertionError(f"mesh_path TP Predictor: {rec}")
+        res["tp_predictor"] = rec
+        seconds["tp_predictor"] = time.perf_counter() - t1
+        if device_type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
+            k1.fn, k2.fn, k3.fn
+    res["seconds"] = {**seconds, "total": time.perf_counter() - t0}
+    res["k1"] = [[list(s), h, str(dt).split(".")[-1], _mask_key(m), n]
+                 for s, h, dt, m, n in k1.calls]
+    res["k2"] = [[list(s), h, str(dt).split(".")[-1], _mask_key(m), n]
+                 for s, h, dt, m, n in k2.calls]
+    res["k3"] = [[list(mkn), route, n] for mkn, routes in k3.calls.items()
+                 for route, n in routes.items()]
+    res["k3_without_kmajor"] = k3.without_kmajor
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_path(k1, k2, k3):
+    """(a) The port's CLI with ``TPU.DISTRIBUTED True`` at one rank, NCCL
+    on the card: golden stage 1 (its ``=> result`` block must equal
+    main_path's) and 3 CoOp steps. (b) Two ranks sharing the card over
+    gloo (``mesh_worker``): a DP CoOp step at batch 32 on mesh (2, 1),
+    CoCoOp and ProDA class-sharded steps on (1, 2) at their published
+    configs (ProDA's classifier on the w8a8 text tower), a TP Predictor
+    encode on (1, 2), each held to one rank. A failure in either rank
+    fails the phase. The ranks' K1/K2/K3 calls join ``k1``/``k2``/``k3``
+    for the kernel checks. Returns the path's launches by kernel
+    instance."""
+    import subprocess
+    import torch
+    import torch.distributed as dist
+    from clip_calibration_tpu_torch.ops.int8_matmul import int8_matmul
+    from clip_calibration_tpu_torch.ops.mha_qkv import mha_qkv, mha_qkv_bwd
+    from clip_calibration_tpu_torch.trainers.coop import CoOp
+
+    common, coop, opts = _common_args(1)
+    dist_env = {"CC_COORD_ADDR": f"localhost:{_free_port()}",
+                "CC_NUM_PROCS": "1", "CC_PROC_ID": "0"}
+    stages = [
+        ("mesh_zsclip_base", ["--trainer", "ZeroshotCLIP", "--config-file",
+                              osp.join(ROOT, "configs", "trainers",
+                                       "ZeroshotCLIP", "vit_b16.yaml")],
+         ["DATASET.SUBSAMPLE_CLASSES", "base"]),
+        # 2 shots of the 50 base classes: 3 steps of 32
+        ("mesh_coop_train", coop,
+         ["DATASET.NUM_SHOTS", "2", "DATASET.SUBSAMPLE_CLASSES", "base",
+          "OPTIM.MAX_EPOCH", "1", "TEST.NO_TEST", "True",
+          "TRAIN.PRINT_FREQ", "1"]),
+    ]
+    steps = [0]
+    forward_backward = CoOp.forward_backward
+
+    def counted_step(self, batch):
+        steps[0] += 1
+        return forward_backward(self, batch)
+
+    mha_qkv.launches = mha_qkv_bwd.launches = int8_matmul.launches = 0
+    before = (k1.count(), k2.count(), k3.count())
+    CoOp.forward_backward = counted_step
+    try:
+        for name, args, extra in stages:
+            os.environ.update(dist_env)
+            dist_env["CC_COORD_ADDR"] = f"localhost:{_free_port()}"
+            seconds, log_path = _cli_stage(
+                name, common + args + ["--output-dir",
+                                       osp.join(WORK, "out", name)]
+                + opts + extra + ["TPU.DISTRIBUTED", "True"],
+                "log.txt")
+            backend = dist.get_backend()
+            world = dist.get_world_size()
+            # NCCL on the card at one rank: one all_reduce through it
+            t = torch.ones(4, device="cuda")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            dist.destroy_process_group()
+            if (backend, world) != ("nccl", 1) or not bool((t == 1).all()):
+                raise AssertionError(f"{name}: backend {backend}, world "
+                                     f"{world}, all_reduce {t.tolist()}")
+            rec = {"stage": name, "seconds": seconds, "backend": backend,
+                   "world": world}
+            if name == "mesh_zsclip_base":
+                block = _result_block(log_path)
+                want = _result_block(osp.join(WORK, "out", "zsclip_base",
+                                              "log.txt"))
+                if block != want:
+                    raise AssertionError(f"{name}: result block\n{block}\n"
+                                         f"differs from main_path's\n{want}")
+                rec["result_equals_main_path"] = True
+                rec["metrics"] = _checked_metrics(name, log_path)
+            else:
+                losses = [float(x) for x in re.findall(
+                    r" loss (\S+) \(", open(log_path).read())]
+                if steps[0] != 3 or len(losses) != 3 or not all(
+                        map(math.isfinite, losses)):
+                    raise AssertionError(f"{name}: {steps[0]} steps, "
+                                         f"losses {losses}")
+                rec.update(steps=steps[0], losses=losses)
+            emit("mesh_path", **rec)
+    finally:
+        CoOp.forward_backward = forward_backward
+        for key in ("CC_COORD_ADDR", "CC_NUM_PROCS", "CC_PROC_ID"):
+            os.environ.pop(key, None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    one_rank = {"mha_qkv_fwd": mha_qkv.launches,
+                "mha_qkv_bwd": mha_qkv_bwd.launches}
+    if (k1.count() - before[0], k2.count() - before[1]) != (
+            mha_qkv.launches, mha_qkv_bwd.launches) or mha_qkv_bwd.launches \
+            != 12 * 3:
+        raise AssertionError(f"mesh_path one rank: launches {one_rank}")
+
+    # (b): the kernels were built by the build phase; the ranks load them
+    port = _free_port()
+    outs = [osp.join(WORK, "mesh", f"rank{r}.json") for r in range(2)]
+    os.makedirs(osp.join(WORK, "mesh"), exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, osp.abspath(__file__), "--mesh-worker", str(r),
+         str(port), outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        with open(osp.join(WORK, "mesh", f"rank{r}.log"), "w") as f:
+            f.write(log)
+        if p.returncode != 0:
+            raise AssertionError(f"mesh_path rank {r} failed (exit "
+                                 f"{p.returncode}):\n{log[-6000:]}")
+    ranks = [json.load(open(o)) for o in outs]
+    launches = dict.fromkeys(("mha_qkv_fwd", "mha_qkv_fwd_f32",
+                              "mha_qkv_bwd", "mha_qkv_bwd_f32",
+                              "int8_matmul"), 0)
+    for res in ranks:
+        n1, n2 = ({dt: sum(c[4] for c in res[k] if c[2] == dt)
+                   for dt in ("bfloat16", "float32")} for k in ("k1", "k2"))
+        n3 = sum(c[2] for c in res["k3"])
+        if not (all(n1.values()) and all(n2.values()) and n3) \
+                or res["k3_without_kmajor"]:
+            raise AssertionError(f"mesh_path rank {res['rank']}: launches "
+                                 f"K1 {n1}, K2 {n2}, K3 {n3}")
+        launches["mha_qkv_fwd"] += n1["bfloat16"]
+        launches["mha_qkv_fwd_f32"] += n1["float32"]
+        launches["mha_qkv_bwd"] += n2["bfloat16"]
+        launches["mha_qkv_bwd_f32"] += n2["float32"]
+        launches["int8_matmul"] += n3
+        emit("mesh_path", stage="two_ranks_gloo", rank=res["rank"],
+             backend=res["backend"], world=res["world"],
+             weights="seeded random init (no accuracy claim)",
+             gloo_cuda_collectives=res["gloo_cuda_collectives"],
+             tolerances={"loss_rtol": MESH_LOSS_RTOL,
+                         "grad_rtol": MESH_GRAD_RTOL,
+                         "fp32_loss_rtol": MESH_FP32_LOSS_RTOL,
+                         "fp32_grad_rtol": MESH_FP32_GRAD_RTOL,
+                         "cos_tol": MESH_COS_TOL},
+             **{k: res[k] for k in ("CoOp", "CoOp_fp32", "CoCoOp", "ProDA",
+                                    "tp_predictor", "seconds")},
+             launches={
+                 "mha_qkv_fwd": {f"{s} {h} heads {dt} {m[0]}": n
+                                 for s, h, dt, m, n in res["k1"]},
+                 "mha_qkv_bwd": {f"{s} {h} heads {dt} {m[0]}": n
+                                 for s, h, dt, m, n in res["k2"]},
+                 "int8_matmul": {f"{mkn} {route}": n
+                                 for mkn, route, n in res["k3"]}})
+        # the ranks' calls join the kernel checks (masks rebuilt)
+        dev = torch.device("cuda", 0)
+        for rec, calls in ((k1, res["k1"]), (k2, res["k2"])):
+            for shape, heads, dt, (kind, real, L), n in calls:
+                mask = pad_mask(real, L, "causal" in kind, dev)
+                dtype = getattr(torch, dt)
+                entry = next((e for e in rec.calls if e[:3] == [
+                    tuple(shape), heads, dtype] and torch.equal(e[3], mask)),
+                    None)
+                if entry is None:
+                    rec.calls.append([tuple(shape), heads, dtype, mask, n])
+                else:
+                    entry[4] += n
+        for mkn, route, n in res["k3"]:
+            routes = k3.calls.setdefault(tuple(mkn), {})
+            routes[route] = routes.get(route, 0) + n
+    emit("mesh_path", stage="two_ranks_total",
+         seconds=time.perf_counter() - t0, launches=launches)
+    launches["mha_qkv_fwd"] += one_rank["mha_qkv_fwd"]
+    launches["mha_qkv_bwd"] += one_rank["mha_qkv_bwd"]
+    return launches
+
+
+def _result_block(log_path: str) -> str:
+    text = open(log_path).read()
+    m = re.search(r"=> result\n(\*.*\n)+", text)
+    if m is None:
+        raise AssertionError(f"no result block in {log_path}")
+    return m.group(0)
+
+
 def check_kernels_bwd(device, launched):
     """K2 vs its plain version, timed, at every (qkv shape, heads, mask)
     the train paths launched it with, in bf16 and fp32, and at the
@@ -2130,6 +2579,15 @@ def fp32_hmma(library: str) -> dict:
 
 def main() -> int:
     import torch
+    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-worker":
+        # one rank of mesh_path (b), started by run_mesh_path
+        if not torch.cuda.is_available():
+            return 2
+        sys.path.insert(0, ROOT)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs the card",
               file=sys.stderr)
@@ -2192,6 +2650,7 @@ def main() -> int:
         fanout = run_fanout_path(k1, k2, k3)
         k1_serve, k3_serve = run_serve_path(k1, k3)
         k4_probe, probe_rows = run_probe_path()
+        mesh = run_mesh_path(k1, k2, k3)
     finally:
         attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
             k1.fn, k2.fn, k3.fn
@@ -2208,6 +2667,14 @@ def main() -> int:
         return out
 
     cases_fwd = timed(check_kernels, device, k1.calls)
+    # K1 at mesh_path's shapes: the TP vision tower's local heads and the
+    # class-sharded text fan-outs
+    for shape, heads in (([32, 208, 1152], 6), ([25, 16, 1536], 8),
+                         ([132, 32, 1536], 8)):
+        if not any(c["qkv"] == shape and c["heads"] == heads
+                   and c["main_path_launches"] for c in cases_fwd):
+            raise AssertionError(f"mha_qkv_fwd not checked at mesh_path's "
+                                 f"{shape}, {heads} heads")
     cases_bwd = timed(check_kernels_bwd, device, k2.calls)
     cases_int8 = timed(check_int8_matmul, device, k3.calls)
     cases_k4 = timed(check_int8_attention, device,
@@ -2227,53 +2694,62 @@ def main() -> int:
             "mha_qkv_fwd", "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:36",
             k1_main + k1_train + prompt["mha_qkv_fwd"]
-            + fanout["mha_qkv_fwd"] + k1_serve,
+            + fanout["mha_qkv_fwd"] + k1_serve + mesh["mha_qkv_fwd"],
             of(cases_fwd, "bfloat16"), dtype="bfloat16",
             launches_by_path={"main_path": k1_main, "train_path": k1_train,
                               "fp32_path": 0,
                               "prompt_path": prompt["mha_qkv_fwd"],
                               "fanout_path": fanout["mha_qkv_fwd"],
-                              "serve_path": k1_serve, "probe_path": 0}),
+                              "serve_path": k1_serve, "probe_path": 0,
+                              "mesh_path": mesh["mha_qkv_fwd"]}),
         _kernel_entry(
             "mha_qkv_fwd_f32",
             "clip_calibration_tpu_torch/csrc/mha_qkv_fwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:36",
-            k1_fp32 + prompt["mha_qkv_fwd_f32"] + fanout["mha_qkv_fwd_f32"],
+            k1_fp32 + prompt["mha_qkv_fwd_f32"] + fanout["mha_qkv_fwd_f32"]
+            + mesh["mha_qkv_fwd_f32"],
             of(cases_fwd, "float32"), dtype="float32",
             launches_by_path={"main_path": 0, "train_path": 0,
                               "fp32_path": k1_fp32,
                               "prompt_path": prompt["mha_qkv_fwd_f32"],
                               "fanout_path": fanout["mha_qkv_fwd_f32"],
-                              "serve_path": 0, "probe_path": 0}),
+                              "serve_path": 0, "probe_path": 0,
+                              "mesh_path": mesh["mha_qkv_fwd_f32"]}),
         _kernel_entry(
             "mha_qkv_bwd", "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
-            k2_train + prompt["mha_qkv_bwd"] + fanout["mha_qkv_bwd"],
+            k2_train + prompt["mha_qkv_bwd"] + fanout["mha_qkv_bwd"]
+            + mesh["mha_qkv_bwd"],
             of(cases_bwd, "bfloat16"), dtype="bfloat16",
             launches_by_path={"main_path": 0, "train_path": k2_train,
                               "fp32_path": 0,
                               "prompt_path": prompt["mha_qkv_bwd"],
                               "fanout_path": fanout["mha_qkv_bwd"],
-                              "serve_path": 0, "probe_path": 0}),
+                              "serve_path": 0, "probe_path": 0,
+                              "mesh_path": mesh["mha_qkv_bwd"]}),
         _kernel_entry(
             "mha_qkv_bwd_f32",
             "clip_calibration_tpu_torch/csrc/mha_qkv_bwd.cu",
             "clip_calibration_tpu/ops/pallas_attention.py:94",
-            k2_fp32 + prompt["mha_qkv_bwd_f32"] + fanout["mha_qkv_bwd_f32"],
+            k2_fp32 + prompt["mha_qkv_bwd_f32"] + fanout["mha_qkv_bwd_f32"]
+            + mesh["mha_qkv_bwd_f32"],
             of(cases_bwd, "float32"), dtype="float32",
             launches_by_path={"main_path": 0, "train_path": 0,
                               "fp32_path": k2_fp32,
                               "prompt_path": prompt["mha_qkv_bwd_f32"],
                               "fanout_path": fanout["mha_qkv_bwd_f32"],
-                              "serve_path": 0, "probe_path": 0}),
+                              "serve_path": 0, "probe_path": 0,
+                              "mesh_path": mesh["mha_qkv_bwd_f32"]}),
         _kernel_entry(
             "int8_matmul", "clip_calibration_tpu_torch/csrc/int8_matmul.cu",
             "clip_calibration_tpu/ops/pallas_int8_matmul.py:35",
-            k3_serve + fanout["int8_matmul"], cases_int8,
+            k3_serve + fanout["int8_matmul"] + mesh["int8_matmul"],
+            cases_int8,
             launches_by_path={"main_path": 0, "train_path": 0,
                               "fp32_path": 0, "prompt_path": 0,
                               "fanout_path": fanout["int8_matmul"],
-                              "serve_path": k3_serve, "probe_path": 0}),
+                              "serve_path": k3_serve, "probe_path": 0,
+                              "mesh_path": mesh["int8_matmul"]}),
         _kernel_entry(
             "int8_attention",
             "clip_calibration_tpu_torch/csrc/int8_attention.cu",
@@ -2281,7 +2757,7 @@ def main() -> int:
             launches_by_path={"main_path": 0, "train_path": 0,
                               "fp32_path": 0, "prompt_path": 0,
                               "fanout_path": 0, "serve_path": 0,
-                              "probe_path": k4_probe},
+                              "probe_path": k4_probe, "mesh_path": 0},
             variants={c["variant"]: {k: c[k] for k in (
                 "main_path_launches", "max_abs_err", "ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by")}

@@ -1,4 +1,6 @@
-"""Dataset loaders — importing this package registers them (mirrors the
-side-effect imports in reference ``train.py:14-28``)."""
+"""Dataset loaders — importing this package registers all of them
+(mirrors the side-effect imports in reference ``train.py:14-28``)."""
 
-from . import caltech101, synthetic  # noqa: F401
+from . import (caltech101, dtd, eurosat, fgvc_aircraft, food101, imagenet,
+               imagenet_variants, oxford_flowers, oxford_pets,
+               stanford_cars, sun397, synthetic, ucf101)  # noqa: F401

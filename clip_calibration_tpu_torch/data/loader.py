@@ -20,6 +20,12 @@ train item's random crop and flip come from its own ``random.Random``,
 seeded from (loader seed, epoch, the item's place in the epoch order), so
 batches are the same bytes whatever the number of worker threads and
 however they are scheduled.
+
+On a process mesh (``parallel/mesh.py``) every rank walks the same global
+batches and decodes only its data coordinate's slice of each (ranks
+along the model axis get the same rows); the item draws follow the
+global positions, so the slices together are the single-process batch.
+A partial eval batch is padded to the full size before it is sliced.
 """
 
 from __future__ import annotations
@@ -77,6 +83,14 @@ class DataLoader:
         self.pad_partial = pad_partial
         self.draft_size = draft_size
         self.epoch = 0
+        # multi-rank: every rank iterates the SAME global epoch order and
+        # batch boundaries (the seeded shuffle is rank-independent) but
+        # decodes only its data coordinate's slice of each global batch;
+        # ``n_real`` stays the GLOBAL real-row count so the gathered
+        # outputs can be trimmed. Set by DataManager from the mesh: ranks
+        # along the model axis share a data coordinate and get the same
+        # rows.
+        self.rank, self.world = 0, 1
         # decoded-image RAM cache (DATALOADER.DECODE_CACHE_MB): the
         # protocol is 200 epochs over a ~1.6k-image few-shot set, so
         # re-paying JPEG decode every epoch is pure waste. Post-decode
@@ -138,8 +152,25 @@ class DataLoader:
         chunk = idxs[b * bs:(b + 1) * bs]
         items = [self.data_source[i] for i in chunk]
         n_real = len(items)
+        # each item's draws follow its place in the GLOBAL batch, so a
+        # rank's slice gets the draws a single process gives those rows
+        pos = list(range(b * bs, b * bs + n_real))
+        if self.world > 1:
+            if n_real < bs:
+                if self.is_train:
+                    # padding a TRAIN batch would up-weight the duplicated
+                    # rows against the single-process run (which trains
+                    # on the real rows only)
+                    raise ValueError(
+                        f"multi-rank training needs full batches: got "
+                        f"{n_real} samples for batch size {bs}; shrink "
+                        f"the batch or grow the dataset")
+                items = items + [items[-1]] * (bs - n_real)
+            pb = bs // self.world
+            items = items[self.rank * pb:(self.rank + 1) * pb]
+            pos = pos[self.rank * pb:(self.rank + 1) * pb]
         if self.is_train:
-            rngs = [self._item_rng(b * bs + j) for j in range(n_real)]
+            rngs = [self._item_rng(p) for p in pos]
             imgs = list(pool.map(
                 lambda it, r: self.transform(self._decoded(it.impath), r),
                 items, rngs))
@@ -147,7 +178,8 @@ class DataLoader:
             imgs = list(pool.map(
                 lambda it: self.transform(self._decoded(it.impath)), items))
         labels = np.asarray([it.label for it in items], np.int32)
-        if not self.is_train and self.pad_partial and n_real < bs:
+        if self.world == 1 and not self.is_train and self.pad_partial \
+                and n_real < bs:
             pad = bs - n_real
             imgs = imgs + [imgs[-1]] * pad
             labels = np.concatenate(
@@ -207,7 +239,8 @@ class DataManager:
     """Builds the dataset (registry lookup on cfg.DATASET.NAME) and the
     train/val/test loaders."""
 
-    def __init__(self, cfg, custom_tfm_train=None, custom_tfm_test=None):
+    def __init__(self, cfg, custom_tfm_train=None, custom_tfm_test=None,
+                 mesh=None):
         self.cfg = cfg
         dataset_cls = DATASET_REGISTRY.get(cfg.DATASET.NAME)
         self.dataset = dataset_cls(cfg)
@@ -249,6 +282,20 @@ class DataManager:
             self.dataset.test, cfg.DATALOADER.TEST.BATCH_SIZE,
             tfm_test, is_train=False, num_workers=nw, seed=seed,
             draft_size=draft)
+
+        # multi-rank: each data coordinate decodes its slice of every
+        # global batch (``mesh``: parallel/mesh.py)
+        world = mesh.dims[0] if mesh is not None else 1
+        if world > 1:
+            for ld in (self.train_loader_x, self.val_loader,
+                       self.test_loader):
+                if ld is None:
+                    continue
+                if ld.batch_size % world:
+                    raise ValueError(
+                        f"batch size {ld.batch_size} not divisible by "
+                        f"the mesh's data axis ({world} ranks)")
+                ld.rank, ld.world = mesh.data_coord, world
 
     @property
     def num_classes(self):

@@ -12,6 +12,14 @@ Every trainer lives on one device, named at construction (default
 ``cuda``; asking for it without a card raises). Host batches are staged
 one ahead into the device from pinned memory. A train step only enqueues
 device work: losses stay device tensors until a print fetches them.
+
+Multi-process runs (one process per device, ``parallel/mesh.py``): with
+more than one rank the trainer builds a (data, model) mesh from
+``TPU.MESH_SHAPE``; the loaders hand each data rank its slice of every
+global batch, the trainables start equal on every rank (broadcast from
+rank 0 after build and resume), ``optimizer_step`` reduces their
+gradients over the mesh before stepping, and every rank writes its own
+``OUTPUT_DIR``.
 """
 
 from __future__ import annotations
@@ -31,8 +39,9 @@ from ..data.loader import DataManager
 from ..engine.checkpoint import (export_torch_checkpoint, load_checkpoint,
                                  resolve_model_file, save_checkpoint)
 from ..engine.optim import (load_opt_state_leaves, opt_state_leaves,
-                            set_lr)
+                            set_lr, sorted_leaves)
 from ..engine.registry import build_evaluator
+from ..parallel import mesh as P
 from ..tools.device import resolve_device
 from ..tools.profiling import Tracer
 
@@ -98,6 +107,7 @@ class TrainerX:
         self.build_data_loader()
         self.evaluator = build_evaluator(cfg, lab2cname=self.dm.lab2cname)
         self.build_model()
+        self.broadcast_trainables()
         # TRAINER.QUANT_FROZEN_VISION is never silently ignored: a trainer
         # that supports it calls setup_frozen_vision() in its build_model
         # (which installs the quantized tower or raises); anything else
@@ -114,7 +124,7 @@ class TrainerX:
         pass
 
     def build_data_loader(self):
-        self.dm = DataManager(self.cfg)
+        self.dm = DataManager(self.cfg, mesh=self.mesh)
         self.train_loader_x = self.dm.train_loader_x
         self.val_loader = self.dm.val_loader
         self.test_loader = self.dm.test_loader
@@ -177,15 +187,31 @@ class TrainerX:
             slot["optim"] = slot["make_optim"]()
         return slot["optim"]
 
-    def optimizer_step(self, name: str):
+    def optimizer_step(self, name: str, reduce: bool = True):
         """Step ``name``'s optimizer on the gradients in place, at the
         lr its schedule gives for the step count (optax's
-        ``scale_by_learning_rate(schedule)``)."""
+        ``scale_by_learning_rate(schedule)``). On a mesh the gradients are
+        first made the global loss's (``parallel/mesh.py::
+        reduce_trainable_grads``, summed over the model ranks when the
+        step sharded the class axis); ``reduce=False`` where the caller
+        already did, or where every rank's loss covers the global rows."""
         slot = self._models[name]
         optim = self.optimizer(name)
+        if reduce:
+            P.reduce_trainable_grads(
+                [p for g in optim.param_groups for p in g["params"]],
+                self.mesh, model_sharded=self.class_sharded)
         set_lr(optim, slot["sched"](slot["step"]))
         optim.step()
         slot["step"] += 1
+
+    def broadcast_trainables(self):
+        """Every registered model's tensors set to rank 0's, so all ranks
+        of a mesh hold the same trainables (after build and resume)."""
+        if self.mesh is None:
+            return
+        for slot in self._models.values():
+            P.broadcast_params(sorted_leaves(slot["params"]), self.mesh)
 
     # -- train loop ----------------------------------------------------------
     def train(self):
@@ -383,6 +409,7 @@ class TrainerX:
                     print(f"optimizer state mismatch for {name} ({e}); "
                           "keeping fresh state")
         self.start_epoch = resumed_epoch
+        self.broadcast_trainables()
         print(f"Resumed from {directory} (epoch {resumed_epoch})")
 
     def export_reference_checkpoint(self, directory: str, dst_dir: str,
@@ -448,12 +475,44 @@ class TrainerX:
         self._models[name]["params"] = merge(self._models[name]["params"],
                                              loaded)
 
+    # -- mesh -----------------------------------------------------------------
+    @property
+    def mesh(self):
+        """The (data, model) process mesh (``parallel/mesh.py``), built
+        from TPU.MESH_SHAPE / MESH_AXES when the process group has more
+        than one rank, else None (set ``_mesh = None`` to force the
+        single-rank path)."""
+        if not hasattr(self, "_mesh"):
+            self._mesh = None
+            if P.world()[1] > 1:
+                self._mesh = P.mesh_from_cfg(self.cfg)
+        return self._mesh
+
+    #: True on trainers whose text fan-out splits its classes over a
+    #: model axis (CoCoOp, ProDA)
+    shards_classes = False
+
+    @property
+    def class_sharded(self) -> bool:
+        """The step shards the class axis over the model ranks (each then
+        holds a partial gradient of the trainables)."""
+        return (self.shards_classes and self.mesh is not None
+                and self.mesh.dims[1] > 1)
+
     # -- device staging -------------------------------------------------------
-    def put_batch(self, array) -> torch.Tensor:
+    def put_batch(self, array, global_batch: bool = False) -> torch.Tensor:
         """Host array -> tensor on this trainer's device (pinned memory,
-        asynchronous copy, when that device is a card)."""
+        asynchronous copy, when that device is a card). The loaders
+        already hand each data rank its rows; ``global_batch`` marks an
+        array every rank holds whole (serving requests): on a mesh this
+        rank's data-coordinate slice is taken, and a batch the data axis
+        does not divide raises on more than one rank."""
+        if global_batch:
+            array = P.local_rows(array, self.mesh)
         if isinstance(array, torch.Tensor) and array.device == self.device:
             return array
+        if isinstance(array, np.ndarray) and not array.flags.writeable:
+            array = array.copy()  # torch.as_tensor wants writable memory
         t = torch.as_tensor(np.ascontiguousarray(array))
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import attention as _attention
 from ..ops.attention import (causal_mask, layer_norm, multi_head_attention,
                              quick_gelu)
 from ..ops.quant import BLOCK_WEIGHTS, qdot
@@ -134,11 +135,15 @@ class Block(nn.Module):
         self.mlp = MLP(width, dtype, device)
 
     def forward(self, h, n_heads: int, mask, qmode: str = "dequant",
-                stats: Optional[dict] = None):
+                stats: Optional[dict] = None, tp=None):
         """``qmode``: how int8 weights run (``ops/quant.py::qdot``; plain
         weights ignore it). ``stats``: when given, the absmax over the
         first ``stats["real_len"]`` tokens of each quantized-matmul input
-        is appended to ``stats[(outer, key)]``."""
+        is appended to ``stats[(outer, key)]``. ``tp``: a
+        ``parallel/tp.py::TowerTP``: this rank's heads and hidden
+        features, the two partial products summed over the model ranks."""
+        if tp is not None:
+            return self._forward_tp(h, n_heads, mask, tp)
         a = self.attn
         ln1 = self.ln_1(h)
         attn, ctx = multi_head_attention(ln1, a.wqkv, a.bqkv, a.wo, a.bo,
@@ -156,6 +161,21 @@ class Block(nn.Module):
                             (("mlp", "w_proj"), y)):
                 stats[site].append(t[:, :L].float().abs().amax())
         return out
+
+    def _forward_tp(self, h, n_heads: int, mask, tp):
+        w = tp.block(self)
+        qkv = self.ln_1(h) @ w["wqkv"].to(h.dtype) + w["bqkv"].to(h.dtype)
+        # the fused attention (K1) on this rank's heads, looked up at call
+        # time as multi_head_attention does
+        ctx = _attention.mha_qkv(qkv.contiguous(),
+                                 mask.float().contiguous(),
+                                 tp.heads(n_heads))
+        h = h + (tp.all_reduce(ctx @ w["wo"].to(h.dtype))
+                 + self.attn.bo.to(h.dtype))
+        y = quick_gelu(self.ln_2(h) @ w["w_fc"].to(h.dtype)
+                       + w["b_fc"].to(h.dtype))
+        return h + (tp.all_reduce(y @ w["w_proj"].to(h.dtype))
+                    + self.mlp.b_proj.to(h.dtype))
 
 
 class VisionTower(nn.Module):
@@ -267,7 +287,7 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
                 collect_act_stats: bool = False, *,
                 deep_prompts: Optional[torch.Tensor] = None,
                 deep_prompt_depth: int = 0, text_side: bool = False,
-                remat: bool = False):
+                remat: bool = False, tp=None):
     """Run the residual blocks over x [B, L, D].
 
     deep_prompts: [rows, n_ctx, D] per-layer prompt tokens. Layer i in
@@ -295,7 +315,13 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
     only the layer inputs are kept, and the backward runs each layer's
     forward again (K1 included) before its backward. Same values and
     gradients; memory for the large text fan-outs.
+    tp: optional ``parallel/tp.py::TowerTP``: tensor-parallel blocks
+    (this rank's heads and MLP hidden features, two ``all_reduce`` a
+    layer), forward only, plain weights only; None runs the whole blocks.
     """
+    if tp is not None and (collect_act_stats or qmode != "dequant"):
+        from ..parallel.tp import INT8_TP_ERROR
+        raise NotImplementedError(INT8_TP_ERROR)
     transformer.forwards += 1
     L = x.shape[1]
     Lp = ((L + 15) // 16) * 16
@@ -328,7 +354,7 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
             x = checkpoint(block, x, n_heads, mask, qmode=qmode,
                            stats=stats, use_reentrant=False)
         else:
-            x = block(x, n_heads, mask, qmode=qmode, stats=stats)
+            x = block(x, n_heads, mask, qmode=qmode, stats=stats, tp=tp)
     x = x[:, :L] if Lp != L else x
     if not collect_act_stats:
         return x
@@ -373,7 +399,8 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
                          qmode: str = "dequant",
                          collect_act_stats: bool = False, *,
                          deep_prompts: Optional[torch.Tensor] = None,
-                         deep_prompt_depth: int = 0, remat: bool = False):
+                         deep_prompt_depth: int = 0, remat: bool = False,
+                         tp=None):
     """Text tower over pre-embedded prompts [N, 77, D] (the PromptLearner
     path, reference TextEncoder ``trainers/classification/coop.py:47-67``).
 
@@ -389,6 +416,7 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
     positions [1, 1+n_ctx) (``transformer``).
     remat: per-layer activation checkpointing (``transformer``), for the
     gradient passes over large class/prompt fan-outs.
+    tp: tensor-parallel blocks (``transformer``).
     """
     txt = model.text
     if seq_len is not None and seq_len < x.shape[1]:
@@ -404,7 +432,7 @@ def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
                     collect_act_stats=collect_act_stats,
                     deep_prompts=deep_prompts,
                     deep_prompt_depth=deep_prompt_depth, text_side=True,
-                    remat=remat)
+                    remat=remat, tp=tp)
     if collect_act_stats:
         x, blocks = x
     x = txt.ln_final(x)
@@ -430,14 +458,16 @@ def eot_seq_len(tokens_or_eot) -> int:
 
 
 def encode_text(model: CLIP, cfg: CLIPConfig, tokens: torch.Tensor,
-                dtype=torch.bfloat16,
-                seq_len: Optional[int] = None) -> torch.Tensor:
-    """Raw-token text encode (reference ``clip/model.py:598-613``)."""
+                dtype=torch.bfloat16, seq_len: Optional[int] = None,
+                tp=None) -> torch.Tensor:
+    """Raw-token text encode (reference ``clip/model.py:598-613``); ``tp``
+    as ``transformer``."""
     x = model.text.token_embedding[tokens].to(dtype)
     # EOT from the UNTRUNCATED row; encode_text_embedded then rejects a
     # seq_len that would drop it
     eot_pos = tokens.argmax(dim=-1)
-    return encode_text_embedded(model, cfg, x, eot_pos, seq_len=seq_len)
+    return encode_text_embedded(model, cfg, x, eot_pos, seq_len=seq_len,
+                                tp=tp)
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -454,7 +484,7 @@ def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
                  collect_act_stats: bool = False, *,
                  shallow_prompts: Optional[torch.Tensor] = None,
                  deep_prompts: Optional[torch.Tensor] = None,
-                 deep_prompt_depth: int = 0):
+                 deep_prompt_depth: int = 0, tp=None):
     """Vision tower. images: [B, H, W, 3] (NHWC, preprocessed).
 
     shallow_prompts: [n_ctx, width] tokens appended after the positional
@@ -471,8 +501,15 @@ def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
 
     A ResNet preset runs ``models/resnet.py::ModifiedResNet`` (its convs,
     BatchNorm and attention pool; ``qmode`` does not apply: the ResNet
-    tower is never quantized)."""
+    tower is never quantized).
+
+    tp: tensor-parallel blocks (``transformer``); ViT only, the
+    ModifiedResNet tower is data-parallel only."""
     if not cfg.is_vit:
+        if tp is not None:
+            raise ValueError(
+                "Tensor-parallel execution covers the ViT towers only; "
+                "serve ResNet backbones data-parallel (parallel/tp.py)")
         if collect_act_stats:
             raise ValueError(
                 "activation-scale calibration covers the ViT towers only "
@@ -500,7 +537,8 @@ def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
     x = transformer(vp.blocks, x, cfg.vision_heads, qmode=qmode,
                     collect_act_stats=collect_act_stats,
                     deep_prompts=deep_prompts,
-                    deep_prompt_depth=deep_prompt_depth, text_side=False)
+                    deep_prompt_depth=deep_prompt_depth, text_side=False,
+                    tp=tp)
     if collect_act_stats:
         x, stats["blocks"] = x
     x = vp.ln_post(x[:, 0])

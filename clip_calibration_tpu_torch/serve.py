@@ -29,14 +29,22 @@ center crop, ``data/transforms.py``; ``--config-file`` supplies the
 training run's INPUT tree); ``--preprocess-on-device`` ships raw
 uniform-size uint8 and resizes on the device instead
 (``ops/preprocess.device_preprocess``, ``Predictor`` paths only).
-``--mesh`` (multi-device serving) is slice (c) of the port and raises.
-TF32 stays off, as in the port's ``train.py``.
+``--mesh d[,m]`` serves over a process mesh (``parallel/mesh.py``):
+every rank runs the same command with the ``CC_COORD_ADDR`` /
+``CC_NUM_PROCS`` / ``CC_PROC_ID`` cluster variables (NCCL on cards, gloo
+on ``--device cpu``); each data rank encodes its slice of every batch,
+the ViT tower runs tensor-parallel over a model axis m > 1, and rank 0
+writes ``--out``. For a trainer checkpoint the shape feeds
+``TPU.MESH_SHAPE``. ``--http`` over a mesh is not ported yet
+(``ROADMAP.md``) and raises. TF32 stays off, as in the port's
+``train.py``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import os.path as osp
 import sys
 
@@ -88,8 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".npy with per-class DAC confidences")
     p.add_argument("--temperature", type=float, default=None)
     p.add_argument("--mesh", default=None,
-                   help="device mesh shape (multi-device serving: not "
-                        "ported yet, raises)")
+                   help="process mesh shape, e.g. '2' (data-parallel) or "
+                        "'1,2' (data, model: tensor-parallel ViT tower); "
+                        "every rank runs the command with the CC_* "
+                        "cluster variables")
     p.add_argument("--preprocess-on-device", action="store_true")
     p.add_argument("--quantize", default=None,
                    choices=["int8", "w8a8"],
@@ -183,11 +193,17 @@ def _load_images(paths, resolution: int, on_device: bool,
     return np.stack(arrs)
 
 
-def build_predictor(args, classnames):
-    from .serving import _MESH_ERROR, Predictor, TrainerPredictor
+HTTP_MESH_ERROR = ("--http over a mesh is not ported yet (ROADMAP.md "
+                   "queue 1: HTTP serving over a mesh, the follower loop "
+                   "on the other ranks); serve HTTP on one rank")
 
-    if args.mesh:
-        raise NotImplementedError(_MESH_ERROR)
+
+def _mesh_shape(spec: str) -> tuple:
+    return tuple(int(x) for x in spec.split(","))
+
+
+def build_predictor(args, classnames):
+    from .serving import Predictor, TrainerPredictor
 
     conf = (np.load(args.class_confidence)
             if args.class_confidence else None)
@@ -214,15 +230,23 @@ def build_predictor(args, classnames):
                 "--quantize/--calibration-images/--act-scales/"
                 "--save-act-scales cover the zero-shot/--coop-prompt "
                 "paths only (serving.Predictor)")
+        opts = list(args.opts or [])
+        if args.mesh:
+            # the trainer builds its own mesh from TPU.MESH_SHAPE
+            opts += ["TPU.MESH_SHAPE", repr(_mesh_shape(args.mesh))]
         return TrainerPredictor.from_checkpoint(
             args.checkpoint_dir, classnames, trainer_name=args.trainer,
             backbone=args.backbone, config_file=args.config_file,
-            opts=list(args.opts or []) or None, epoch=args.epoch,
+            opts=opts or None, epoch=args.epoch,
             class_confidence=conf, batch_size=args.batch_size,
             device=args.device)
+    mesh = None
+    if args.mesh:
+        from .parallel.mesh import make_mesh
+        mesh = make_mesh(_mesh_shape(args.mesh))
     kwargs = dict(precision=args.precision, batch_size=args.batch_size,
                   class_confidence=conf, temperature=args.temperature,
-                  preprocess_on_device=args.preprocess_on_device,
+                  mesh=mesh, preprocess_on_device=args.preprocess_on_device,
                   quantize=args.quantize, device=args.device)
     if args.calibration_images:
         if args.quantize != "w8a8":
@@ -262,6 +286,15 @@ def main(argv=None) -> int:
     from .tools.device import resolve_device
 
     args = build_parser().parse_args(argv)
+    if args.mesh and args.http is not None:
+        raise NotImplementedError(HTTP_MESH_ERROR)
+    rank = 0
+    if args.mesh and os.environ.get("CC_COORD_ADDR"):
+        # one process per device: join the cluster before any device
+        # query (each rank takes cuda:{rank % device count})
+        from .parallel.mesh import initialize_distributed
+        initialize_distributed(device=args.device)
+        rank = torch.distributed.get_rank()
     resolve_device(args.device)  # raises without a card before any work
     # fp32 serving stays full fp32 on the card (no TF32 matmuls or convs)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -312,6 +345,8 @@ def main(argv=None) -> int:
                           args)
     out = pred.predict(images)
 
+    if rank != 0:  # every rank holds the result; rank 0 writes it
+        return 0
     k = max(1, min(args.topk, len(classnames)))
     order = np.argsort(-out["probs"], axis=1)[:, :k]
     sink = sys.stdout if args.out == "-" else open(args.out, "w")

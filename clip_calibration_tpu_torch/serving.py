@@ -18,8 +18,16 @@ Counterpart of ``clip_calibration_tpu/serving.py``:
 Images enter as uint8 NHWC at the model resolution (or, with
 ``preprocess_on_device``, at any uniform size). Short chunks pad to the
 next power of two (``_drain_batched``). Every predictor lives on one
-device, default ``cuda``; asking for it without a card raises. Device
-meshes are slice (c) of the port and raise here.
+device, default ``cuda``; asking for it without a card raises.
+
+On a process mesh (``parallel/mesh.py``; ``Predictor(mesh=...)``, or a
+``TrainerPredictor`` over a trainer built on one) serving is SPMD: every
+rank calls ``predict`` with the same images, ``batch_size`` rounds up to
+a multiple of the data axis, each data rank encodes its slice of every
+chunk (the ViT tower tensor-parallel over a model axis > 1,
+``parallel/tp.py``), and the probabilities are gathered, so every rank
+returns the whole result. Int8 weights under tensor parallelism, and
+HTTP serving over a mesh, are not ported yet (``ROADMAP.md``) and raise.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from .models.tokenizer import tokenize
 from .ops.preprocess import (CLIP_PIXEL_MEAN, CLIP_PIXEL_STD,
                              device_preprocess, normalize_images)
 from .ops.scoring import fused_dac_scores
+from .parallel import mesh as P
+from .parallel.tp import INT8_TP_ERROR, tower_tp
 from .tools.device import resolve_device
 
 # Max chunks enqueued on the device ahead of the first fetch of a predict()
@@ -45,19 +55,21 @@ from .tools.device import resolve_device
 # staged inputs of a very large image set never pile up on the device.
 _MAX_IN_FLIGHT = 4
 
-_MESH_ERROR = ("device meshes (data- and tensor-parallel serving) are "
-               "slice (c) of the port (ROADMAP), not ported yet")
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
 
 
 def _drain_batched(images: np.ndarray, batch_size: int, dispatch,
-                   fetch, bucket: bool = False) -> np.ndarray:
+                   fetch, bucket: bool = False,
+                   multiple: int = 1) -> np.ndarray:
     """Pad each chunk to ``batch_size``, dispatch it (device work is only
     enqueued), keep at most ``_MAX_IN_FLIGHT`` chunks pending, fetch fp32
     rows, trim the pad.
 
     ``bucket``: pad a SHORT chunk to the next power of two instead of
     the full ``batch_size``, so a lone request costs a 1-image encode.
-    The pad repeats the chunk's last image."""
+    ``multiple``: every chunk's rows a multiple of it (a mesh's data
+    axis). The pad repeats the chunk's last image."""
     n = images.shape[0]
     pending, done = [], []
     for i in range(0, n, batch_size):
@@ -69,6 +81,7 @@ def _drain_batched(images: np.ndarray, batch_size: int, dispatch,
                 target = 1
                 while target < short:
                     target *= 2
+                target = min(_round_up(target, multiple), batch_size)
             if short < target:
                 pad = np.repeat(batch[-1:], target - short, axis=0)
                 batch = np.concatenate([batch, pad])
@@ -126,11 +139,15 @@ class Predictor:
                  act_scales=None,
                  device="cuda",
                  _text_features: Optional[torch.Tensor] = None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_ERROR)
         self.device = resolve_device(device)
         self.classnames = list(classnames)
         self.batch_size = int(batch_size)
+        self.mesh = mesh
+        self.tp = tower_tp(mesh)
+        if mesh is not None:
+            self.batch_size = _round_up(self.batch_size, mesh.dims[0])
+        if self.tp is not None and quantize is not None:
+            raise NotImplementedError(INT8_TP_ERROR)
         self.preprocess_on_device = bool(preprocess_on_device)
         if quantize == "w8a8_kernel":
             raise ValueError(
@@ -153,6 +170,12 @@ class Predictor:
         self.model, self.cfg = load_clip_backbone(
             backbone, "float32" if precision == "fp32" else "bfloat16",
             self.device)
+        if self.tp is not None and not self.cfg.is_vit:
+            # fail at construction, not at the first request
+            raise ValueError(
+                "Tensor-parallel serving covers the ViT towers only; "
+                "serve ResNet backbones on a data-only mesh "
+                "(parallel/tp.py)")
         self.dtype = torch.float32 if precision == "fp32" else torch.bfloat16
         from .ops import quant as Q
         if quantize is not None:
@@ -253,18 +276,21 @@ class Predictor:
                                      dtype=self.dtype)
         return normalize_images(images, *self.pixel_stats, dtype=self.dtype)
 
-    def _predict_step(self, images: torch.Tensor, scale: torch.Tensor,
+    def _predict_step(self, images: np.ndarray, scale: torch.Tensor,
                       conf: torch.Tensor) -> torch.Tensor:
-        """Encode + calibrated scoring; the features stay on the device."""
+        """Encode + calibrated scoring of one padded chunk; the features
+        stay on the device. On a mesh this data rank's rows, the
+        probabilities gathered."""
         q = self.qmode
         if self.act_stats is not None and images.shape[0] < 2:
-            q = "w8a8_dynamic"  # the 1-row bucket
+            q = "w8a8_dynamic"  # the 1-row bucket (of the whole chunk)
+        images = _to_device(P.local_rows(images, self.mesh), self.device)
         img_f = M.normalize(M.encode_image(
             self.model, self.cfg, self._preprocess(images), dtype=self.dtype,
-            qmode=q))
+            qmode=q, tp=self.tp))
         probs, _ = fused_dac_scores(img_f, self.text_features, scale, conf,
                                     normalized=True)
-        return probs
+        return P.gather_data(probs, self.mesh)
 
     def predict(self, images: np.ndarray) -> dict:
         """images: uint8 [N, H, W, 3] at the model resolution, or, with
@@ -297,9 +323,10 @@ class Predictor:
                     device=self.device))
             probs = _drain_batched(
                 images, self.batch_size,
-                lambda b: self._predict_step(_to_device(b, self.device),
-                                             scale, self.class_confidence),
-                lambda p: p.float().cpu().numpy(), bucket=True)
+                lambda b: self._predict_step(b, scale,
+                                             self.class_confidence),
+                lambda p: p.float().cpu().numpy(), bucket=True,
+                multiple=self.mesh.dims[0] if self.mesh else 1)
         preds = probs.argmax(axis=1)
         return {"probs": probs, "preds": preds,
                 "confidences": probs.max(axis=1)}
@@ -414,12 +441,14 @@ class TrainerPredictor:
     ``model_inference`` already returns tempered logits)."""
 
     def __init__(self, trainer, class_confidence=None,
-                 batch_size: Optional[int] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_ERROR)
+                 batch_size: Optional[int] = None):
         self.trainer = trainer
         self.batch_size = int(batch_size
                               or trainer.cfg.DATALOADER.TEST.BATCH_SIZE)
+        if trainer.mesh is not None:
+            # every padded chunk splits evenly over the data axis
+            self.batch_size = _round_up(self.batch_size,
+                                        trainer.mesh.dims[0])
         n_cls = trainer.dm.num_classes
         if class_confidence is not None and len(class_confidence) != n_cls:
             raise ValueError(
@@ -473,12 +502,13 @@ class TrainerPredictor:
                 f"images; got {images.dtype} {images.shape} — apply "
                 f"host-side geometry first "
                 f"(data/transforms.build_transform)")
-        device = self.trainer.device
+        trainer = self.trainer
         with torch.inference_mode():
             probs = _drain_batched(
                 images, self.batch_size,
-                lambda b: self._score(self.trainer.model_inference(
-                    _to_device(b, device))[0]),
+                lambda b: P.gather_data(self._score(trainer.model_inference(
+                    trainer.put_batch(b, global_batch=True))[0]),
+                    trainer.mesh),
                 lambda p: p.float().cpu().numpy())
         preds = probs.argmax(axis=1)
         return {"probs": probs, "preds": preds,

@@ -12,8 +12,14 @@ yaml -> CLI resets -> calibration JSON -> opts -> freeze; calibrator-combo
 log-file naming; the TempScaling trainer swap when the calibration JSON
 asks for ``scaling_based`` with a scaling config; build the trainer from
 the registry; train (checkpoints, auto-resume, final test) or, with
-``--eval-only``, evaluate. Ported: ZeroshotCLIP, CoOp (train and eval,
-with DAC) and TempScaling on a CoOp base.
+``--eval-only``, evaluate.
+
+Multi-process runs: ``TPU.DISTRIBUTED True`` joins the process group
+(``parallel/mesh.py::initialize_distributed``: ``CC_COORD_ADDR``,
+``CC_NUM_PROCS``, ``CC_PROC_ID``; NCCL on ``--device cuda``, gloo on
+``--device cpu``) before any device query; every rank runs the same
+command, takes ``cuda:{rank % device count}`` and builds its trainer on
+the ``TPU.MESH_SHAPE`` mesh (default: all ranks data-parallel).
 """
 
 from __future__ import annotations
@@ -142,6 +148,21 @@ def check_use_pallas(value, device_type: str) -> None:
 
 
 def main(args):
+    cfg = setup_cfg(args)
+    if cfg.TPU.DISTRIBUTED:
+        # every rank runs this same command; after the join the trainer
+        # builds its mesh over all ranks (TPU.MESH_SHAPE). Before any
+        # device query: the rank picks its card
+        from clip_calibration_tpu_torch.parallel.mesh import (
+            initialize_distributed)
+        if cfg.SEED < 0:
+            # each rank draws the few-shot splits and inits on its own:
+            # without a fixed seed they would train on different data
+            raise ValueError("TPU.DISTRIBUTED needs a fixed seed "
+                             "(--seed N): every rank must draw the same "
+                             "few-shot splits")
+        nproc = initialize_distributed(device=args.device)
+        print(f"Distributed: {nproc} processes")
     device = resolve_device(args.device)
     # fp32 runs must be full fp32 on the card: the golden parity with the
     # reference (tests/test_golden_e2e.py) holds at fp32 and breaks at the
@@ -149,11 +170,7 @@ def main(args):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = setup_cfg(args)
     check_use_pallas(cfg.TPU.USE_PALLAS, device.type)
-    if cfg.TPU.DISTRIBUTED:
-        raise NotImplementedError(
-            "multi-process runs are not ported to the torch package yet")
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_random_seed(cfg.SEED)

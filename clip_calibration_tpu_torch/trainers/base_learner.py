@@ -32,6 +32,7 @@ from ..engine.trainer import TrainerX
 from ..models import clip as M
 from ..models.backbone import load_clip_backbone
 from ..models.tokenizer import tokenize
+from ..parallel import mesh as P
 from .calibration.proximity import (get_knn_dists, get_val_image_knn_dists,
                                     proximity_from_dists)
 from .calibration.vl_calibrator import VLCalibration
@@ -63,6 +64,12 @@ def _load_feature_dict(path: str) -> dict:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 @functools.lru_cache(maxsize=2)
@@ -145,13 +152,13 @@ class VLBaseLearner(TrainerX):
     def loss_step(self, name: str, batch) -> dict:
         """One train step of ``name``'s tensors on ``self._loss(images,
         labels)``: backward, then the optimizer step. The loss stays on
-        the device."""
+        the device (on a mesh: the global batch's mean)."""
         images, labels = self.parse_batch_train(batch)
         self.optimizer(name).zero_grad(set_to_none=True)
         loss = self._loss(images, self.put_batch(labels))
         loss.backward()
         self.optimizer_step(name)
-        return {"loss": loss.detach()}
+        return {"loss": P.data_mean(loss.detach(), self.mesh)}
 
     # -- quantized frozen vision tower (TRAINER.QUANT_FROZEN_VISION) -------
     #: True on trainers whose image tower takes TRAINABLE prompt inputs
@@ -175,7 +182,11 @@ class VLBaseLearner(TrainerX):
         """qmode of an image batch of ``batch_rows`` rows: under w8a8 a
         single row runs the dynamic per-row path over the same int8
         weights, as the serving Predictor's 1-row bucket does (the JAX
-        package's rule; it changes the numbers, not only the speed)."""
+        package's rule; it changes the numbers, not only the speed). On a
+        mesh the rule reads the global batch (this rank's rows times the
+        data axis), as the JAX program's shape does."""
+        if self.mesh is not None:
+            batch_rows *= self.mesh.dims[0]
         if self.vision_qmode == "w8a8" and batch_rows == 1:
             return "w8a8_dynamic"
         return self.vision_qmode
@@ -229,8 +240,13 @@ class VLBaseLearner(TrainerX):
         if mode == "w8a8":
             x = normalize_images(self.put_batch(self._calibration_images()),
                                  *self.pixel_stats, dtype=self.compute_dtype)
-            qm = Q.attach_act_scales(
-                qm, Q.calibrate_image_act_scales(qm, self.clip_cfg, x))
+            stats = Q.calibrate_image_act_scales(qm, self.clip_cfg, x)
+            # on a mesh each data rank calibrated on ITS slice of the
+            # batch: absmax statistics reduce with max, so every rank
+            # attaches the scales one process would
+            stats = _tree_map(lambda t: P.max_over_ranks(t, self.mesh),
+                              stats)
+            qm = Q.attach_act_scales(qm, stats)
         self._step_clip_params = qm
         self.vision_qmode = "w8a8" if mode == "w8a8" else "dequant"
         print(f"Frozen vision tower quantized: mode={mode} "
@@ -330,16 +346,23 @@ class VLBaseLearner(TrainerX):
     def _run_inference(self, data_loader):
         """Returns (logits, labels, image_features, text_features) as
         host arrays. Batch N's outputs are fetched after batch N+1 has
-        been queued, so the copy back overlaps the next batch's work."""
+        been queued, so the copy back overlaps the next batch's work.
+
+        On a mesh each data rank infers its slice of every batch; the
+        rows are gathered in data order (``n`` is the global real-row
+        count), and the text features are the last data rank's (the last
+        image's, for CoCoOp), so every rank returns what one process
+        would."""
         logits_all, labels_all, img_f_all = [], [], []
         text_features = None
         pending = None
+        mesh = self.mesh
 
         def collect(p):
             (output, img_f, txt_f), n, labels = p
-            logits_all.append(_host(output)[:n])
-            img_f_all.append(_host(img_f)[:n])
-            labels_all.append(labels.cpu().numpy()[:n])
+            logits_all.append(P.to_host_global(output, mesh)[:n])
+            img_f_all.append(P.to_host_global(img_f, mesh)[:n])
+            labels_all.append(P.to_host_global(labels, mesh)[:n])
             return txt_f
 
         for batch in self._device_staged(data_loader):
@@ -350,6 +373,7 @@ class VLBaseLearner(TrainerX):
             pending = (out, batch["n_real"], labels)
         if pending is not None:
             text_features = collect(pending)
+        text_features = P.from_last_data_rank(text_features, mesh)
         return (np.concatenate(logits_all), np.concatenate(labels_all),
                 np.concatenate(img_f_all), _host(text_features))
 

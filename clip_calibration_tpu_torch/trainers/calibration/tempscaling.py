@@ -13,9 +13,12 @@ Training re-points ``train_loader_x`` at the *val* loader (reference
 config). The frozen model's cosine logits are computed once per val batch
 and replayed from a cache in later epochs. Checkpoints are saved as
 ``model-calibrated.pth.tar-<N>`` (reference ``tempscaling.py:305-327``).
-The JAX package gathers rows across hosts (``host_rows_allgather``,
-``to_host_global``); on one device those are the identity and are left
-out.
+On a mesh each data rank infers its slice of a val batch; the cosine
+logits and the labels are gathered in the same data order
+(``parallel/mesh.py``, the JAX package's ``to_host_global`` and
+``host_rows_allgather``: pairing gathered logits with one rank's labels
+was the JAX package's multi-host bug of its round 5), so every rank fits
+the temperature on the global batch and its gradient needs no reduction.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 
 from ...engine.checkpoint import load_checkpoint
 from ...engine.registry import TRAINER_REGISTRY
+from ...parallel import mesh as P
 from ..base_learner import VLBaseLearner
 
 
@@ -155,9 +159,7 @@ class TempScaling(VLBaseLearner):
         n = batch["n_real"]
         base = getattr(self.train_loader_x, "base", self.train_loader_x)
         if base is not self.val_loader:
-            images, labels = self.parse_batch_train(batch)
-            cos, _, _ = self._unit_logits(images)
-            return cos[:n], labels[:n]
+            return self._global_cos(batch, n)
         key = tuple(batch["impath"])
         if key not in self._cos_cache:
             # bounded by construction: the sequential val loader replays
@@ -166,9 +168,8 @@ class TempScaling(VLBaseLearner):
                 raise RuntimeError(
                     "TempScaling logit cache grew past one epoch — the "
                     "val loader order is expected to be deterministic")
-            images, labels = self.parse_batch_train(batch)
-            cos, _, _ = self._unit_logits(images)
-            self._cos_cache[key] = (cos[:n], self.put_batch(labels)[:n])
+            cos, labels = self._global_cos(batch, n)
+            self._cos_cache[key] = (cos, self.put_batch(labels))
         elif not self._fingerprint_checked:
             # first cache hit: the base model must not have trained since
             # build (cached logits would silently go stale)
@@ -179,6 +180,15 @@ class TempScaling(VLBaseLearner):
             self._fingerprint_checked = True
         return self._cos_cache[key]
 
+    def _global_cos(self, batch, n):
+        """(cosine logits, labels) of the batch's first ``n`` global rows,
+        on a mesh both gathered over the data ranks in the same order."""
+        images, labels = self.parse_batch_train(batch)
+        cos, _, _ = self._unit_logits(images)
+        if self.mesh is not None:
+            labels = P.gather_data(self.put_batch(labels), self.mesh)
+        return P.gather_data(cos, self.mesh)[:n], labels[:n]
+
     def forward_backward(self, batch):
         cos, labels = self._cached_cos(batch)
         scale = self.model_params("scale_learner")["scale"]
@@ -186,7 +196,8 @@ class TempScaling(VLBaseLearner):
         loss = F.cross_entropy(torch.exp(scale) * cos,
                                self.put_batch(labels).long())
         loss.backward()
-        self.optimizer_step("scale_learner")
+        # every rank's loss is the global batch's: equal gradients
+        self.optimizer_step("scale_learner", reduce=False)
         return {"loss": loss.detach(),
                 "temperature": torch.exp(scale.detach())}
 

@@ -16,6 +16,15 @@ saved activations stay one chunk's. The prompts are concatenations and
 the EOT rows gathered, so no indexed read (and no sorting backward) is
 in the graph. Under ``TRAINER.QUANT_EVAL_TEXT`` the eval fan-out runs
 the int8 text tower (K3 under w8a8); training never does.
+
+On a mesh with a model axis of m > 1 (``parallel/mesh.py``) each model
+rank encodes its block of ceil(n_cls / m) classes of each chunk's
+images (the text tower sees [rows / m, Lp, D]), and ``gather_classes``
+restores the class axis for the logits outside the checkpointed part, so
+a chunk's recompute runs no collective. A class count that m does not
+divide is padded with copies of the last class and trimmed after the
+gather. The trainables' partial gradients are summed over the model
+ranks by ``reduce_trainable_grads``.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from ..engine.registry import TRAINER_REGISTRY
 from ..models import clip as M
 from ..models.backbone import load_clip_backbone
 from ..ops.preprocess import normalize_images
+from ..parallel.mesh import class_slice, gather_classes
 from .base_learner import VLBaseLearner
 from .coop import build_prompt_assembly
 
@@ -41,40 +51,46 @@ def meta_net_forward(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def fanout_logits(model, cfg, asm, ctx: torch.Tensor, img_f: torch.Tensor,
-                  qmode: str = "dequant"):
+                  qmode: str = "dequant", mesh=None):
     """The CoCoOp fan-out: ctx [B, n_ctx, D] per-image contexts (fp32),
     img_f [B, E] normalized image features -> (logits [B, n_cls] fp32, the
-    last image's normalized class text features [n_cls, E])."""
+    last image's normalized class text features [n_cls, E]). ``mesh``:
+    this model rank encodes its block of the classes (``class_slice``)."""
+    n_cls = asm["embedding"].shape[0]
+    cls = class_slice(n_cls, mesh).to(asm["embedding"].device)
     emb = asm["embedding"][:, :asm["seq_len"]]
+    eot = asm["eot_pos"]
+    if len(cls) != n_cls:
+        emb, eot = emb[cls], eot[cls]
     n_ctx = asm["n_ctx"]
-    n_cls, L, D = emb.shape
+    n_loc, L, D = emb.shape
     B = ctx.shape[0]
     chunk = max(1, min(B, _CHUNK_TARGET_ROWS // max(n_cls, 1)))
     scale = torch.exp(model.logit_scale.float())
 
-    def per_chunk(ctx_c, imf_c):
+    def encode_chunk(ctx_c):
         c = ctx_c.shape[0]
         prompts = torch.cat([
-            emb[None, :, :1].expand(c, n_cls, 1, D),
-            ctx_c.to(emb.dtype)[:, None].expand(c, n_cls, n_ctx, D),
-            emb[None, :, 1 + n_ctx:].expand(c, n_cls, L - 1 - n_ctx, D)],
-            dim=2).reshape(c * n_cls, L, D)
-        txt = M.encode_text_embedded(model, cfg, prompts,
-                                     asm["eot_pos"].repeat(c), qmode=qmode)
-        txt_n = M.normalize(txt).reshape(c, n_cls, -1)
-        return scale * torch.einsum("cd,cnd->cn", imf_c.float(),
-                                    txt_n.float()), txt_n
+            emb[None, :, :1].expand(c, n_loc, 1, D),
+            ctx_c.to(emb.dtype)[:, None].expand(c, n_loc, n_ctx, D),
+            emb[None, :, 1 + n_ctx:].expand(c, n_loc, L - 1 - n_ctx, D)],
+            dim=2).reshape(c * n_loc, L, D)
+        txt = M.encode_text_embedded(model, cfg, prompts, eot.repeat(c),
+                                     qmode=qmode)
+        return M.normalize(txt).reshape(c, n_loc, -1)
 
-    # at scale each chunk is checkpointed: the loop's backward would
-    # otherwise keep every chunk's text-tower activations, B * n_cls rows'
-    # worth, the very spike the chunks bound in the forward
+    # at scale each chunk's encode is checkpointed: the loop's backward
+    # would otherwise keep every chunk's text-tower activations, B * n_cls
+    # rows' worth, the very spike the chunks bound in the forward
     remat = B * n_cls >= _CHUNK_TARGET_ROWS and torch.is_grad_enabled()
     logits = []
     for i in range(0, B, chunk):
-        args = (ctx[i:i + chunk], img_f[i:i + chunk])
-        l_c, txt_n = (checkpoint(per_chunk, *args, use_reentrant=False)
-                      if remat else per_chunk(*args))
-        logits.append(l_c)
+        txt_n = (checkpoint(encode_chunk, ctx[i:i + chunk],
+                            use_reentrant=False)
+                 if remat else encode_chunk(ctx[i:i + chunk]))
+        txt_n = gather_classes(txt_n, mesh, 1, n_cls)
+        logits.append(scale * torch.einsum(
+            "cd,cnd->cn", img_f[i:i + chunk].float(), txt_n.float()))
     return torch.cat(logits), txt_n[-1]
 
 
@@ -84,6 +100,8 @@ class CoCoOp(VLBaseLearner):
     #: eval re-runs the text tower for every image's class set: the
     #: quantized text fan-out's workload (TRAINER.QUANT_EVAL_TEXT)
     text_eval_quant_supported = True
+
+    shards_classes = True
 
     def check_cfg(self, cfg):
         assert cfg.TRAINER.COCOOP.PREC in ("fp16", "fp32", "amp")
@@ -154,7 +172,8 @@ class CoCoOp(VLBaseLearner):
         bias = meta_net_forward(p["meta"], img_f.float())  # [B, D]
         ctx = p["ctx"][None] + bias[:, None]               # [B, n_ctx, D]
         logits, txt_last = fanout_logits(model, self.clip_cfg, self.asm,
-                                         ctx, img_f, text_qmode)
+                                         ctx, img_f, text_qmode,
+                                         mesh=self.mesh)
         return logits, img_f, txt_last
 
     def _loss(self, images, labels):

@@ -23,6 +23,21 @@ lengths (the causal mask keeps every row's pooled feature the same);
 from 512 rows the tower checkpoints each layer. The covariance
 correction is computed on its diagonal and label row only, never as the
 [D, n_cls, n_cls] covariance.
+
+On a mesh with a model axis of m > 1 (``parallel/mesh.py``) each model
+rank encodes its block of ceil(n_cls / m) classes x P prompt rows, in the
+train step, in ``set_classifier`` and in the ``QUANT_EVAL_TEXT`` sweep
+(the text tower sees [n_cls / m x P + 32, Lp, D]); ``gather_classes``
+restores the class axis, and the loss is computed on it alike on every
+model rank. The class-free diversity rows ride in every model rank's
+tower call (no extra call or collective, the same values everywhere):
+``count_once`` keeps their gradient on model rank 0 only, so the
+model-group sum of the partial gradients counts them once and the loss
+and its gradient equal the unsharded ones. A class count that m does not
+divide is padded with copies of the last class and trimmed after the
+gather. The activation-scale calibration of ``QUANT_EVAL_TEXT w8a8``
+runs over all classes on every rank (once per classifier; the same
+scales as one process).
 """
 
 from __future__ import annotations
@@ -36,6 +51,8 @@ from ..models import clip as M
 from ..models.backbone import load_clip_backbone
 from ..models.tokenizer import tokenize
 from ..ops.preprocess import normalize_images
+from ..parallel.mesh import (class_slice, count_once, data_mean,
+                             gather_classes)
 from .base_learner import VLBaseLearner
 from .coop import build_prompt_assembly
 
@@ -53,6 +70,8 @@ class ProDA(VLBaseLearner):
 
     def check_cfg(self, cfg):
         assert cfg.TRAINER.PRODA.PREC in ("fp16", "fp32", "amp")
+
+    shards_classes = True
 
     @property
     def compute_dtype(self):
@@ -85,6 +104,7 @@ class ProDA(VLBaseLearner):
         self.embedding = torch.stack([a["embedding"] for a in asms])
         self.ctx_pos = torch.stack([a["ctx_pos"] for a in asms])
         self.eot_pos = asms[0]["eot_pos"]
+        self.n_cls = len(classnames)
         self.seq_len = max(a["seq_len"] for a in asms)
         self.n_ctx = n_ctx
         print("Initializing a generic context")
@@ -122,12 +142,14 @@ class ProDA(VLBaseLearner):
         self.setup_frozen_vision()
 
     # -- prompt assembly ----------------------------------------------------
-    def _assemble(self, ctx_batch, pos_batch, seq_len: int):
+    def _assemble(self, ctx_batch, pos_batch, seq_len: int, cls=None):
         """ctx_batch [P, n_ctx, D], pos_batch [P] -> prompts [n_cls, P,
         seq_len, D], each prompt's context written into its position
-        variant's rows."""
+        variant's rows; ``cls``: only these classes."""
         emb = self.embedding[pos_batch][:, :, :seq_len]  # [P, n_cls, S, D]
         pos = self.ctx_pos[pos_batch]                    # [P, n_cls, n_ctx]
+        if cls is not None:
+            emb, pos = emb[:, cls], pos[:, cls]
         P, n_cls, n_ctx = pos.shape
         rows = torch.arange(P, device=emb.device)[:, None, None]
         cls = torch.arange(n_cls, device=emb.device)[None, :, None]
@@ -142,14 +164,19 @@ class ProDA(VLBaseLearner):
                            qmode="dequant"):
         """[n_cls, P, E] normalized text features; with ``extra_rows``
         [R, 77, D] (and their host ``extra_eots``) also their normalized
-        features [R, E], from the SAME tower call."""
+        features [R, E], from the SAME tower call. On a model axis > 1
+        this rank encodes its classes; the class axis is gathered."""
         seq_len = self.seq_len
         if extra_rows is not None:
             seq_len = max(seq_len, int(np.max(extra_eots)) + 1)
-        prompts = self._assemble(ctx_batch, pos_batch, seq_len)
+        cls = None  # this model rank's classes (all without a mesh)
+        if self.class_sharded:
+            cls = class_slice(self.n_cls, self.mesh).to(self.device)
+        prompts = self._assemble(ctx_batch, pos_batch, seq_len, cls)
         n_cls, P = prompts.shape[:2]
         flat = prompts.reshape(n_cls * P, seq_len, -1)
-        eot = self.eot_pos.repeat_interleave(P)
+        eot = (self.eot_pos if cls is None
+               else self.eot_pos[cls]).repeat_interleave(P)
         if extra_rows is not None:
             flat = torch.cat([flat, extra_rows[:, :seq_len].to(flat.dtype)])
             eot = torch.cat([eot, torch.as_tensor(
@@ -158,7 +185,8 @@ class ProDA(VLBaseLearner):
         txt = M.normalize(M.encode_text_embedded(
             model, self.clip_cfg, flat, eot, qmode=qmode,
             remat=flat.shape[0] >= _REMAT_MIN_TEXT_ROWS))
-        out = txt[:n_cls * P].reshape(n_cls, P, -1)
+        out = gather_classes(txt[:n_cls * P].reshape(n_cls, P, -1),
+                             self.mesh, 0, self.n_cls)
         if extra_rows is None:
             return out
         return out, txt[n_cls * P:]
@@ -191,7 +219,8 @@ class ProDA(VLBaseLearner):
                                            extra_rows=nc,
                                            extra_eots=nc_eots)
         tf = tf.float()                        # [n_cls, P, E]
-        nc_f = nc_f.float()
+        # every model rank encodes the class-free rows: count them once
+        nc_f = count_once(nc_f, self.mesh).float()
         text_mean = tf.mean(dim=1)             # [n_cls, E]
         scale = torch.exp(self.clip_model.logit_scale.float())
         logits = scale * (img_f @ text_mean.T)
@@ -238,7 +267,7 @@ class ProDA(VLBaseLearner):
         self.text_features = None  # classifier stale
         if self.text_eval_quant:
             self.invalidate_eval_text_quant()  # ctx moved: scales stale
-        return {"loss": loss.detach()}
+        return {"loss": data_mean(loss.detach(), self.mesh)}
 
     # -- eval ---------------------------------------------------------------
     @torch.no_grad()

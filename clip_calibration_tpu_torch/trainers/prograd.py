@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..engine.optim import sorted_leaves
 from ..engine.registry import TRAINER_REGISTRY
 from ..models import clip as M
+from ..parallel.mesh import data_mean, reduce_grads
 from .base_learner import encode_classnames_zs
 from .coop import CoOp
 from .templates import CUSTOM_TEMPLATES
@@ -111,8 +112,12 @@ class ProGrad(CoOp):
         params = sorted_leaves(self.model_params(name))
         g_ce = torch.autograd.grad(xe, params, retain_graph=True)
         g_kl = torch.autograd.grad(kl, params)
+        # on a mesh both gradients become the global batch's before the
+        # (nonlinear) projection, as the JAX step takes them
+        g_ce = reduce_grads(g_ce, self.mesh)
+        g_kl = reduce_grads(g_kl, self.mesh)
         for p, g in zip(params, prograd_project(g_ce, g_kl, self.lambda_)):
             p.grad = g
-        self.optimizer_step(name)
+        self.optimizer_step(name, reduce=False)
         self._cached_text_features = None  # ctx changed
-        return {"loss": xe.detach()}
+        return {"loss": data_mean(xe.detach(), self.mesh)}

@@ -99,6 +99,30 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert r.stdout.strip().endswith("ok")
 
 
+def test_parallel_and_loaders_run_with_jax_blocked(tmp_path):
+    """The multi-device modules and the eleven dataset loaders import with
+    jax and the JAX package blocked; the dry run goes through on one rank
+    (no process group: a (1, 1) mesh)."""
+    code = textwrap.dedent("""
+        import clip_calibration_tpu_torch.data.datasets as D
+        from clip_calibration_tpu_torch.engine.registry import (
+            DATASET_REGISTRY)
+        from clip_calibration_tpu_torch.parallel import dryrun, mesh, tp
+        for name in ("DescribableTextures", "EuroSAT", "FGVCAircraft",
+                     "Food101", "ImageNet", "ImageNetA", "ImageNetR",
+                     "ImageNetSketch", "ImageNetV2", "OxfordFlowers",
+                     "OxfordPets", "StanfordCars", "SUN397", "UCF101"):
+            DATASET_REGISTRY.get(name)
+        res = dryrun.dryrun_multichip("cpu", root="dry")
+        assert "tp" not in res and res["products"]["cocoop"]["loss"]
+        assert sys.modules["jax"] is None  # never imported
+        print("ok")
+    """)
+    r = _run(code, str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")
+
+
 def test_cli_stage_runs_with_jax_and_sklearn_blocked(tmp_path):
     """The whole ZeroshotCLIP stage of the CLI (loader, tokenizer, towers,
     KNN, calibrator, evaluator) runs without jax, sklearn or matplotlib."""
