@@ -187,20 +187,19 @@ class TrainerX:
             slot["optim"] = slot["make_optim"]()
         return slot["optim"]
 
-    def optimizer_step(self, name: str, reduce: bool = True):
+    def optimizer_step(self, name: str):
         """Step ``name``'s optimizer on the gradients in place, at the
         lr its schedule gives for the step count (optax's
         ``scale_by_learning_rate(schedule)``). On a mesh the gradients are
         first made the global loss's (``parallel/mesh.py::
         reduce_trainable_grads``, summed over the model ranks when the
-        step sharded the class axis); ``reduce=False`` where the caller
-        already did, or where every rank's loss covers the global rows."""
+        step sharded the class axis); gradients that are already equal on
+        every rank come out of its data average unchanged."""
         slot = self._models[name]
         optim = self.optimizer(name)
-        if reduce:
-            P.reduce_trainable_grads(
-                [p for g in optim.param_groups for p in g["params"]],
-                self.mesh, model_sharded=self.class_sharded)
+        P.reduce_trainable_grads(
+            [p for g in optim.param_groups for p in g["params"]],
+            self.mesh, model_sharded=self.class_sharded)
         set_lr(optim, slot["sched"](slot["step"]))
         optim.step()
         slot["step"] += 1

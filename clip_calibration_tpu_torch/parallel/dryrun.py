@@ -11,7 +11,8 @@ ViT-B/16 on the card); ``dryrun_multichip`` composes them as the JAX
 function does: a (world / 2, 2) mesh, or (world, 1) for an odd world.
 
 Where a piece compares with one rank, the unsharded work is recomputed on
-every rank with no mesh: no collective runs in it.
+every rank with no mesh: no collective runs in it. Every entry runs on the
+card unless the caller passes ``device="cpu"``, and raises without one.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from ..models import clip as M
 from ..ops.preprocess import normalize_images
+from ..tools.device import resolve_device
 from .mesh import (Mesh, class_slice, data_mean, gather_classes,
                    gather_data, local_rows, make_mesh, reduce_grads, world)
 from .tp import tower_tp
@@ -37,11 +39,12 @@ TP_CFG = M.CLIPConfig(32, 32, 2, 128, 8, 64, 4, 2)
 
 
 def setup(preset: str, n_cls: int, batch: int, n_ctx: int = 4,
-          seed: int = 0, device="cpu", dtype=torch.float32):
+          seed: int = 0, device="cuda", dtype=torch.float32):
     """(cfg, model, ctx, embedding, eot_pos, images, labels): a seeded
     random CLIP and a CoOp problem on it (constant pre-embedded class
     prompts [SOS | ctx slots | class tokens]), the same on every rank
     (drawn on the CPU, then moved)."""
+    device = resolve_device(device)
     cfg = M.PRESETS[preset] if isinstance(preset, str) else preset
     model = M.init_clip(M.CLIP(cfg, dtype, device), seed)
     gen = torch.Generator().manual_seed(seed + 1)
@@ -212,7 +215,7 @@ def _product_cfg(mesh_shape, trainer_name: str, root: str, out_dir: str,
     return cfg
 
 
-def product_trainers(mesh: Mesh, device="cpu", root: Optional[str] = None,
+def product_trainers(mesh: Mesh, device="cuda", root: Optional[str] = None,
                      batch: Optional[int] = None) -> dict:
     """The product trainers on the mesh, ViT-Test on the synthetic data:
     CoCoOp and ProDA (the class-sharded fan-outs; ProDA's eval
@@ -225,6 +228,7 @@ def product_trainers(mesh: Mesh, device="cpu", root: Optional[str] = None,
     from ..data.base import set_random_seed
     from ..engine.registry import TRAINER_REGISTRY
     from ..ops.quant import QuantizedWeight
+    device = resolve_device(device)
     root = root or tempfile.mkdtemp(prefix="dryrun_")
     batch = batch or mesh.dims[0] * 2
     out = {}
@@ -312,7 +316,7 @@ def product_trainers(mesh: Mesh, device="cpu", root: Optional[str] = None,
 
 
 @torch.inference_mode()
-def tp_tower(mesh: Mesh, device="cpu", cfg=TP_CFG, model=None,
+def tp_tower(mesh: Mesh, device="cuda", cfg=TP_CFG, model=None,
              images: Optional[torch.Tensor] = None,
              dtype=torch.float32) -> dict:
     """The ViT and text towers with heads and MLP hidden features over the
@@ -321,6 +325,7 @@ def tp_tower(mesh: Mesh, device="cpu", cfg=TP_CFG, model=None,
     unsharded ones (host arrays). Int8 weights under TP must raise."""
     from ..ops import quant as Q
     from .tp import INT8_TP_ERROR
+    device = resolve_device(device)
     tp = tower_tp(mesh)
     if tp is None:
         raise RuntimeError(f"tower_tp inactive on {mesh}")
@@ -360,11 +365,12 @@ def tp_tower(mesh: Mesh, device="cpu", cfg=TP_CFG, model=None,
     return out
 
 
-def dryrun_multichip(device="cpu", root: Optional[str] = None) -> dict:
+def dryrun_multichip(device="cuda", root: Optional[str] = None) -> dict:
     """The JAX ``dryrun_multichip`` on this process group: a (world / 2,
     2) mesh (or (world, 1)), one sharded CoOp step and the calibrated eval
     at ViT-Test, held to one rank; the product trainers; with a model
     axis, the TP towers. Returns the numbers it checked."""
+    device = resolve_device(device)
     rank, n = world()
     m = 2 if n % 2 == 0 and n >= 2 else 1
     mesh = make_mesh((n // m, m))

@@ -89,7 +89,6 @@ class Mesh:
     data_group: Optional[object]
     model_group: Optional[object]
     data_ranks: Tuple[int, ...]
-    model_ranks: Tuple[int, ...]
 
     @property
     def shape(self) -> dict:
@@ -134,7 +133,6 @@ def make_mesh(mesh_shape: Optional[Sequence[int]] = None,
     d, m = shape
     data_group = model_group = None
     data_ranks = tuple(i * m + rank % m for i in range(d))
-    model_ranks = tuple((rank // m) * m + j for j in range(m))
     if n > 1:
         # new_group is collective over the whole world: every rank makes
         # every group, in one order
@@ -146,8 +144,7 @@ def make_mesh(mesh_shape: Optional[Sequence[int]] = None,
             g = dist.new_group([i * m + j for j in range(m)])
             if i == rank // m and m > 1:
                 model_group = g
-    return Mesh(shape, rank, data_group, model_group, data_ranks,
-                model_ranks)
+    return Mesh(shape, rank, data_group, model_group, data_ranks)
 
 
 def mesh_from_cfg(cfg) -> Mesh:

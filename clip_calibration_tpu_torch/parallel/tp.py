@@ -43,14 +43,12 @@ INT8_TP_ERROR = ("int8 weights on a tensor-parallel tower (model axis > 1) "
 
 class TowerTP:
     """This model rank's block slices, and the reduction over the model
-    group. ``batch_axis``: "data" when the batch is also split over a data
-    axis > 1 (each data rank encodes its rows), else None."""
+    group."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.m = mesh.dims[1]
         self.r = mesh.model_coord
-        self.batch_axis = "data" if mesh.dims[0] > 1 else None
         self._slices = weakref.WeakKeyDictionary()
 
     def heads(self, n_heads: int) -> int:

@@ -92,8 +92,7 @@ class ParameterizedTempScaling(TempScaling):
         logits = torch.exp(pts_log_scale(params, cos))[:, None] * cos
         loss = F.cross_entropy(logits, self.put_batch(labels).long())
         loss.backward()
-        # the loss covers the gathered global rows on every rank
-        self.optimizer_step("scale_learner", reduce=False)
+        self.optimizer_step("scale_learner")
         return {"loss": loss.detach()}
 
     def model_inference(self, images):

@@ -18,7 +18,7 @@ logits and the labels are gathered in the same data order
 (``parallel/mesh.py``, the JAX package's ``to_host_global`` and
 ``host_rows_allgather``: pairing gathered logits with one rank's labels
 was the JAX package's multi-host bug of its round 5), so every rank fits
-the temperature on the global batch and its gradient needs no reduction.
+the temperature on the global batch.
 """
 
 from __future__ import annotations
@@ -197,7 +197,7 @@ class TempScaling(VLBaseLearner):
                                self.put_batch(labels).long())
         loss.backward()
         # every rank's loss is the global batch's: equal gradients
-        self.optimizer_step("scale_learner", reduce=False)
+        self.optimizer_step("scale_learner")
         return {"loss": loss.detach(),
                 "temperature": torch.exp(scale.detach())}
 

@@ -118,6 +118,6 @@ class ProGrad(CoOp):
         g_kl = reduce_grads(g_kl, self.mesh)
         for p, g in zip(params, prograd_project(g_ce, g_kl, self.lambda_)):
             p.grad = g
-        self.optimizer_step(name, reduce=False)
+        self.optimizer_step(name)
         self._cached_text_features = None  # ctx changed
         return {"loss": data_mean(xe.detach(), self.mesh)}

@@ -357,7 +357,14 @@ def test_library_constructors_default_to_cuda_and_raise():
     cfg.TRAINER.NAME = "ZeroshotCLIP"
     from clip_calibration_tpu_torch.serving import Predictor
     from clip_calibration_tpu_torch import probe_int8_attention
+    from clip_calibration_tpu_torch.parallel import dryrun as D
+    from clip_calibration_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh((1, 2), 0, None, None, (0,))
     for call in (lambda: build_trainer(cfg),
+                 lambda: D.dryrun_multichip(),
+                 lambda: D.setup("ViT-Test", n_cls=2, batch=2),
+                 lambda: D.product_trainers(mesh),
+                 lambda: D.tp_tower(mesh),
                  lambda: load_clip_backbone("ViT-Test"),
                  lambda: Predictor("ViT-Test", ["a", "b"]),
                  lambda: probe_int8_attention.main(["1", "8", "64", "1"]),

@@ -175,8 +175,9 @@ def test_make_mesh_shapes(fx):
         assert r["default"] == (4, 1)
         assert r["shape"] == {"data": 2, "model": 2}
         assert r["coords"] == (rank // 2, rank % 2)
-        assert r["groups"] == (tuple(i * 2 + rank % 2 for i in range(2)),
-                               tuple((rank // 2) * 2 + j for j in range(2)))
+        assert r["groups"] == ([i * 2 + rank % 2 for i in range(2)],
+                               [(rank // 2) * 2 + j for j in range(2)])
+        assert r["data_ranks"] == r["groups"][0]
         assert "(3, 2) != 4 ranks" in r["bad"]
 
 
@@ -368,17 +369,16 @@ def test_proda_class_sharded_matches_single_device(fx, trainer_numbers,
 # --------------------------------------------------------------- TP towers
 
 def test_tower_tp_gating():
-    """tower_tp is None without a model axis > 1; ``batch_axis`` names
-    the data axis only when it splits the batch."""
+    """tower_tp is None without a model axis > 1; otherwise it holds this
+    rank's model coordinate and splits the heads over the model axis."""
     from clip_calibration_tpu_torch.parallel.mesh import Mesh, make_mesh
     from clip_calibration_tpu_torch.parallel.tp import tower_tp
     assert tower_tp(None) is None
     assert tower_tp(make_mesh()) is None
-    assert tower_tp(Mesh((4, 1), 0, None, None, (0,), (0,))) is None
-    tp = tower_tp(Mesh((2, 2), 0, None, None, (0, 2), (0, 1)))
-    assert tp is not None and tp.batch_axis == "data"
-    assert tower_tp(Mesh((1, 2), 0, None, None, (0,), (0, 1))
-                    ).batch_axis is None
+    assert tower_tp(Mesh((4, 1), 0, None, None, (0,))) is None
+    tp = tower_tp(Mesh((2, 2), 3, None, None, (1, 3)))
+    assert tp is not None and (tp.m, tp.r) == (2, 1)
+    assert tower_tp(Mesh((1, 2), 0, None, None, (0,))).heads(12) == 6
 
 
 def _jax_tp(fx, mesh_shape):
@@ -434,7 +434,7 @@ def test_tensor_parallel_rejects_resnet_and_int8():
     from clip_calibration_tpu_torch.parallel.mesh import Mesh
     from clip_calibration_tpu_torch.parallel.tp import tower_tp
     from clip_calibration_tpu_torch.serving import Predictor
-    mesh = Mesh((1, 2), 0, None, None, (0,), (0, 1))
+    mesh = Mesh((1, 2), 0, None, None, (0,))
     tp = tower_tp(mesh)
     rn = M.init_clip(M.CLIP(M.PRESETS["RN-Test"], torch.float32, "cpu"), 0)
     with pytest.raises(ValueError, match="data-parallel"):

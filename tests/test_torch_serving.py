@@ -273,7 +273,7 @@ def test_mesh_is_not_ported():
     int8 weights on a tensor-parallel tower, and HTTP over a mesh (mesh
     serving itself is held to one rank in test_torch_parallel.py)."""
     from clip_calibration_tpu_torch.parallel.mesh import Mesh
-    tp_mesh = Mesh((1, 2), 0, None, None, (0,), (0, 1))
+    tp_mesh = Mesh((1, 2), 0, None, None, (0,))
     for quantize in ("int8", "w8a8"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port_predictor("ViT-Test", BASE, mesh=tp_mesh,

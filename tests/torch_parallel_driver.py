@@ -21,6 +21,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -134,7 +135,10 @@ def case_shapes(inp, shape):
     m = P.make_mesh(shape)
     out["shape"] = m.shape
     out["coords"] = (m.data_coord, m.model_coord)
-    out["groups"] = (m.data_ranks, m.model_ranks)
+    # the ranks of the groups the collectives run over
+    out["groups"] = tuple(dist.get_process_group_ranks(g)
+                          for g in (m.data_group, m.model_group))
+    out["data_ranks"] = list(m.data_ranks)
     try:
         P.make_mesh((3, 2))
     except ValueError as e:
