@@ -98,14 +98,21 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    at batch 32 on mesh (2, 1) (again at fp32: the fp32 K1 and K2, a tight
    tolerance), CoCoOp and ProDA class-sharded steps on
    (1, 2) at their published configs (ProDA's classifier then on the w8a8
-   text tower), and a tensor-parallel Predictor on (1, 2) (its
-   ``predict`` probabilities and its tower's features); each held to the
-   same work on one rank (``MESH_*`` tolerances). Each rank sets the
-   kernels' launch counters to 0 after the probe and holds them to its
-   recorded calls at the end. Fails if either rank fails or launches none
-   of K1, K2 and K3; the ranks' calls
-   by shape join the kernel checks (K1 at the TP shape [32, 208, 1152]
-   with 6 heads and at the class-sharded text shapes).
+   text tower), a tensor-parallel Predictor on (1, 2) (its ``predict``
+   probabilities and its tower's features), and the int8 and w8a8 TP
+   Predictors on (1, 2) (static scales calibrated on 32 images; 64 images
+   and the 1-row bucket; K3 at each rank's TP shapes, 50 launches a w8a8
+   forward); each held to the same work on one rank (``MESH_*``
+   tolerances). Each rank sets the kernels' launch counters to 0 after
+   the probe and holds them to its recorded calls at the end. Fails if
+   either rank fails or launches none of K1, K2 and K3. (c) The serve CLI
+   with ``--http 127.0.0.1:0 --mesh 1,2 --quantize w8a8`` on two ranks
+   sharing the card over gloo (``--serve-worker``): concurrent single
+   images and one JSON batch held to a one-rank w8a8 Predictor, then
+   SIGTERM to rank 0; both ranks must exit 0. The ranks' calls by shape
+   join the kernel checks (K1 at the TP shape [B, 208, 1152] with 6 heads
+   and at the class-sharded text shapes; K3 at the TP shapes [13312, 768,
+   1152], [13312, 384, 768], [13312, 768, 1536] and [13312, 1536, 768]).
 8. ``probe_path``: the port's int8 attention probe
    (``probe_int8_attention``) at its default full width (B 256, L 208,
    D 768, H 12), each variant on K4, one row a variant; asserts K4
@@ -144,6 +151,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import base64
 import json
 import math
 import os
@@ -152,6 +160,7 @@ import re
 import shutil
 import sys
 import time
+import urllib.request
 
 ROOT = osp.dirname(osp.abspath(__file__))
 WORK = osp.join(ROOT, "build", "chip_smoke")
@@ -1178,11 +1187,46 @@ MESH_FP32_GRAD_RTOL = 1e-4
 #: per row: 1 - cos(mesh, one rank); SERVE_COS_TOL's bound, whose w8a8
 #: rounding-boundary steps the bf16 ulps above can also trigger
 MESH_COS_TOL = 1e-3
-#: the TP Predictor's probabilities (fp32 scores of those bf16 features
-#: over 50 classes): max |diff| against one rank's, about ten times the
-#: gap measured on an H100 (1.5e-4); its top-1 class must agree on every
-#: row whose one-rank top-2 margin exceeds twice this bound
+#: the TP Predictors' probabilities (fp32 scores of bf16 features over 50
+#: classes), full precision, int8 and w8a8, and the answers of HTTP over
+#: two ranks: max |diff| against one rank's. Measured on an H100: 1.5e-4
+#: (full), 1.6e-4 (int8), 4.6e-4 (w8a8: each rank rescales its partial
+#: product of wo and w_proj to bf16 before the sum, and an activation
+#: moved across an int8 rounding boundary of a static scale moves by a
+#: whole int8 step). The top-1 class must agree on every row whose
+#: one-rank top-2 margin exceeds twice this bound
 MESH_PROBS_ATOL = 2e-3
+
+
+def k3_per_w8a8_forward() -> int:
+    """int8 products per w8a8 ViT-B/16 image forward: 4 in each block, the
+    patch embedding and the projection (50)."""
+    from clip_calibration_tpu_torch.models.clip import PRESETS
+    return 4 * PRESETS["ViT-B/16"].vision_layers + 2
+
+
+def _probs_check(what, p_tp, p_one) -> dict:
+    """A mesh Predictor's probabilities against one rank's: within
+    ``MESH_PROBS_ATOL``, and the same top-1 class on every row whose
+    one-rank top-2 margin exceeds twice it."""
+    import numpy as np
+    atol = MESH_PROBS_ATOL
+    top2 = np.sort(p_one, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * atol
+    agree = p_tp.argmax(1) == p_one.argmax(1)
+    rec = {"probs_max_abs_diff": float(np.abs(p_tp - p_one).max()),
+           "probs_atol": atol,
+           # the scale a wrong row or class order would move them by
+           "one_rank_top1_prob_mean": float(p_one.max(1).mean()),
+           "top1_agreement": float(agree.mean()),
+           "top1_clear_rows": int(clear.sum()),
+           "top1_clear_agreement": float(agree[clear].mean())
+           if clear.any() else None}
+    if not (p_tp.shape == p_one.shape and np.isfinite(p_tp).all()
+            and rec["probs_max_abs_diff"] <= atol
+            and bool(agree[clear].all())):
+        raise AssertionError(f"mesh_path {what}: {rec}")
+    return rec
 
 
 def _mask_key(mask) -> list:
@@ -1281,9 +1325,6 @@ def mesh_worker(rank: int, port: int, out_path: str,
     import torch
     from clip_calibration_tpu_torch.data.datasets.synthetic import _classname
     from clip_calibration_tpu_torch.models import clip as M
-    from clip_calibration_tpu_torch.ops import attention
-    from clip_calibration_tpu_torch.ops import int8_matmul as int8_ops
-    from clip_calibration_tpu_torch.ops import mha_qkv as kernels
     from clip_calibration_tpu_torch.parallel import dryrun as D
     from clip_calibration_tpu_torch.parallel.mesh import (
         initialize_distributed, make_mesh)
@@ -1296,19 +1337,12 @@ def mesh_worker(rank: int, port: int, out_path: str,
     work = osp.join(WORK, "mesh", f"rank{rank}")
     os.makedirs(work, exist_ok=True)
     os.chdir(work)  # this rank's ./temp caches
-    k1 = Recorder(kernels.mha_qkv)
-    k2 = Recorder(kernels.mha_qkv_bwd)
-    k3 = ShapeRecorder(int8_ops.kernel_product)
-    attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
-        k1, k2, k3
     res = {"rank": rank, "backend": torch.distributed.get_backend(),
            "world": torch.distributed.get_world_size()}
     seconds = {}
     t0 = time.perf_counter()
     res["gloo_cuda_collectives"] = _gloo_probe(device)
-    # the wrappers' own launch counters, held to the stand-ins' counts
-    kernels.mha_qkv.launches = k2.launches = \
-        int8_ops.int8_matmul.launches = 0
+    k1, k2, k3 = _rank_kernels()
     rng = np.random.default_rng(5)
 
     def batch(n, n_cls):
@@ -1365,56 +1399,137 @@ def mesh_worker(rank: int, port: int, out_path: str,
                        device=device)
         one = Predictor("ViT-B/16", names, batch_size=32, device=device)
         images, _ = batch(32, 50)
-        out_tp = tp.predict(images.cpu().numpy())
-        p_tp, p_one = out_tp["probs"], \
-            one.predict(images.cpu().numpy())["probs"]
+        p_tp = tp.predict(images.cpu().numpy())["probs"]
+        p_one = one.predict(images.cpu().numpy())["probs"]
         with torch.inference_mode():
             x = tp._preprocess(images)
             f_tp = M.encode_image(tp.model, tp.cfg, x, dtype=tp.dtype,
                                   tp=tp.tp)
             f_one = M.encode_image(one.model, one.cfg, x, dtype=one.dtype)
-        top2 = np.sort(p_one, axis=1)[:, -2:]
-        clear = top2[:, 1] - top2[:, 0] > 2 * MESH_PROBS_ATOL
-        agree = out_tp["preds"] == p_one.argmax(1)
         rec = {"mesh": [1, 2], "batch": 32,
                "feature_cos_gap": _cos_gap(f_tp, f_one),
-               "probs_max_abs_diff": float(np.abs(p_tp - p_one).max()),
-               # the scale a wrong row or class order would move them by
-               "one_rank_top1_prob_mean": float(p_one.max(1).mean()),
-               "top1_agreement": float(agree.mean()),
-               "top1_clear_rows": int(clear.sum()),
-               "top1_clear_agreement": float(agree[clear].mean())
-               if clear.any() else None}
-        if not (p_tp.shape == p_one.shape == (32, 50)
-                and np.isfinite(p_tp).all()
-                and rec["feature_cos_gap"] <= MESH_COS_TOL
-                and rec["probs_max_abs_diff"] <= MESH_PROBS_ATOL
-                and bool(agree[clear].all())):
+               **_probs_check("TP Predictor", p_tp, p_one)}
+        if not rec["feature_cos_gap"] <= MESH_COS_TOL:
             raise AssertionError(f"mesh_path TP Predictor: {rec}")
         res["tp_predictor"] = rec
         seconds["tp_predictor"] = time.perf_counter() - t1
+        # the int8 and w8a8 TP Predictors on (1, 2): each rank's int8
+        # columns of wqkv and w_fc and rows of wo and w_proj (K3 at the TP
+        # shapes, the 1-row bucket on dynamic scales with the MAX over
+        # the ranks), static scales calibrated unsharded on 32 images
+        cal, _ = batch(32, 50)
+        images, _ = batch(64, 50)
+        host = images.cpu().numpy()
+        for quantize in ("int8", "w8a8"):
+            t1 = time.perf_counter()
+            kw = ({"calibration_images": cal.cpu().numpy()}
+                  if quantize == "w8a8" else {})
+            tpq = Predictor("ViT-B/16", names, batch_size=64, mesh=mesh,
+                            quantize=quantize, device=device, **kw)
+            oneq = Predictor("ViT-B/16", names, batch_size=64,
+                             quantize=quantize, device=device, **kw)
+            k3_0 = k3.count()
+            p_tp = [tpq.predict(x)["probs"] for x in (host, host[:1])]
+            k3_tp = k3.count() - k3_0
+            p_one = [oneq.predict(x)["probs"] for x in (host, host[:1])]
+            # two image forwards (64 rows, 1 row), 50 products each
+            want = 2 * k3_per_w8a8_forward() if quantize == "w8a8" else 0
+            rec = {"mesh": [1, 2], "batch": 64, "k3_launches": k3_tp,
+                   **_probs_check(f"TP {quantize} Predictor",
+                                  np.concatenate(p_tp),
+                                  np.concatenate(p_one))}
+            if k3_tp != want:
+                raise AssertionError(f"mesh_path TP {quantize} Predictor: "
+                                     f"K3 launched {k3_tp} times, not "
+                                     f"{want}")
+            res[f"tp_predictor_{quantize}"] = rec
+            seconds[f"tp_predictor_{quantize}"] = time.perf_counter() - t1
+            del tpq, oneq
         if device_type == "cuda":
             torch.cuda.synchronize()
     finally:
-        attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
-            k1.fn, k2.fn, k3.fn
+        _remove_kernels(k1, k2, k3)
     res["seconds"] = {**seconds, "total": time.perf_counter() - t0}
-    res["counters"] = {"mha_qkv": kernels.mha_qkv.launches,
-                       "mha_qkv_bwd": k2.fn.launches,
-                       "int8_matmul": int8_ops.int8_matmul.launches}
+    res.update(_rank_launches(rank, k1, k2, k3))
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _rank_kernels():
+    """Stand-ins that record K1's, K2's and K3's calls in a rank process,
+    installed with the wrappers' own launch counters set to 0 (held to the
+    stand-ins' counts by ``_rank_launches``)."""
+    from clip_calibration_tpu_torch.ops import attention
+    from clip_calibration_tpu_torch.ops import int8_matmul as int8_ops
+    from clip_calibration_tpu_torch.ops import mha_qkv as kernels
+    k1 = Recorder(kernels.mha_qkv)
+    k2 = Recorder(kernels.mha_qkv_bwd)
+    k3 = ShapeRecorder(int8_ops.kernel_product)
+    attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
+        k1, k2, k3
+    kernels.mha_qkv.launches = k2.fn.launches = \
+        int8_ops.int8_matmul.launches = 0
+    return k1, k2, k3
+
+
+def _remove_kernels(k1, k2, k3) -> None:
+    from clip_calibration_tpu_torch.ops import attention
+    from clip_calibration_tpu_torch.ops import int8_matmul as int8_ops
+    from clip_calibration_tpu_torch.ops import mha_qkv as kernels
+    attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
+        k1.fn, k2.fn, k3.fn
+
+
+def _rank_launches(rank, k1, k2, k3) -> dict:
+    """The kernels' own counters, which must equal the recorded calls, and
+    the calls by shape (JSON): K1 and K2 as [qkv shape, heads, dtype,
+    mask key, count], K3 as [(M, K, N), route, count]."""
+    from clip_calibration_tpu_torch.ops.int8_matmul import int8_matmul
+    counters = {"mha_qkv": k1.fn.launches, "mha_qkv_bwd": k2.fn.launches,
+                "int8_matmul": int8_matmul.launches}
     recorded = {"mha_qkv": k1.count(), "mha_qkv_bwd": k2.count(),
                 "int8_matmul": k3.count()}
-    if recorded != res["counters"]:
+    if recorded != counters:
         raise AssertionError(f"rank {rank}: the recorded calls {recorded} "
-                             f"are not the kernels' launches "
-                             f"{res['counters']}")
-    res["k1"] = [[list(s), h, str(dt).split(".")[-1], _mask_key(m), n]
-                 for s, h, dt, m, n in k1.calls]
-    res["k2"] = [[list(s), h, str(dt).split(".")[-1], _mask_key(m), n]
-                 for s, h, dt, m, n in k2.calls]
-    res["k3"] = [[list(mkn), route, n] for mkn, routes in k3.calls.items()
-                 for route, n in routes.items()]
-    res["k3_without_kmajor"] = k3.without_kmajor
+                             f"are not the kernels' launches {counters}")
+    return {
+        "counters": counters,
+        "k1": [[list(s), h, str(dt).split(".")[-1], _mask_key(m), n]
+               for s, h, dt, m, n in k1.calls],
+        "k2": [[list(s), h, str(dt).split(".")[-1], _mask_key(m), n]
+               for s, h, dt, m, n in k2.calls],
+        "k3": [[list(mkn), route, n] for mkn, routes in k3.calls.items()
+               for route, n in routes.items()],
+        "k3_without_kmajor": k3.without_kmajor}
+
+
+def serve_worker(rank: int, port: int, out_path: str, argv,
+                 device_type: str = "cuda") -> None:
+    """One rank of mesh_path (c) (``chip_smoke.py --serve-worker RANK PORT
+    OUT ARGS...``): joins a gloo group of two ranks sharing the card, then
+    runs the port's serve CLI with ARGS (``--http ... --mesh 1,2``) over
+    it: rank 0 serves until SIGTERM, rank 1 follows. Writes the CLI's exit
+    code and the kernels' launches by shape to ``out_path`` as JSON."""
+    import torch
+    from clip_calibration_tpu_torch import serve
+    from clip_calibration_tpu_torch.parallel.mesh import initialize_distributed
+    os.environ.update(CC_COORD_ADDR=f"localhost:{port}", CC_NUM_PROCS="2",
+                      CC_PROC_ID=str(rank))
+    initialize_distributed(backend="gloo", device=device_type)
+    # joined already (NCCL, serve's default on a card, refuses two ranks on
+    # one device): the CLI serves over this group
+    os.environ.pop("CC_COORD_ADDR")
+    k1, k2, k3 = _rank_kernels()
+    try:
+        rc = serve.main(list(argv))
+        if device_type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        _remove_kernels(k1, k2, k3)
+    res = {"rank": rank, "rc": rc, **_rank_launches(rank, k1, k2, k3)}
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     with open(out_path, "w") as f:
@@ -1435,8 +1550,9 @@ def run_mesh_path(k1, k2, k3):
     main_path's) and 3 CoOp steps. (b) Two ranks sharing the card over
     gloo (``mesh_worker``): a DP CoOp step at batch 32 on mesh (2, 1),
     CoCoOp and ProDA class-sharded steps on (1, 2) at their published
-    configs (ProDA's classifier on the w8a8 text tower), a TP Predictor
-    encode on (1, 2), each held to one rank. A failure in either rank
+    configs (ProDA's classifier on the w8a8 text tower), the full, int8
+    and w8a8 TP Predictors on (1, 2), each held to one rank. (c) HTTP
+    over the two ranks (``run_mesh_http``). A failure in either rank
     fails the phase. The ranks' K1/K2/K3 calls join ``k1``/``k2``/``k3``
     for the kernel checks. Returns the path's launches by kernel
     instance."""
@@ -1580,7 +1696,9 @@ def run_mesh_path(k1, k2, k3):
                          "cos_tol": MESH_COS_TOL,
                          "probs_atol": MESH_PROBS_ATOL},
              **{k: res[k] for k in ("CoOp", "CoOp_fp32", "CoCoOp", "ProDA",
-                                    "tp_predictor", "seconds", "counters")},
+                                    "tp_predictor", "tp_predictor_int8",
+                                    "tp_predictor_w8a8", "seconds",
+                                    "counters")},
              launches={
                  "mha_qkv_fwd": {f"{s} {h} heads {dt} {m[0]}": n
                                  for s, h, dt, m, n in res["k1"]},
@@ -1588,27 +1706,211 @@ def run_mesh_path(k1, k2, k3):
                                  for s, h, dt, m, n in res["k2"]},
                  "int8_matmul": {f"{mkn} {route}": n
                                  for mkn, route, n in res["k3"]}})
-        # the ranks' calls join the kernel checks (masks rebuilt)
-        dev = torch.device("cuda", 0)
-        for rec, calls in ((k1, res["k1"]), (k2, res["k2"])):
-            for shape, heads, dt, (kind, real, L), n in calls:
-                mask = pad_mask(real, L, "causal" in kind, dev)
-                dtype = getattr(torch, dt)
-                entry = next((e for e in rec.calls if e[:3] == [
-                    tuple(shape), heads, dtype] and torch.equal(e[3], mask)),
-                    None)
-                if entry is None:
-                    rec.calls.append([tuple(shape), heads, dtype, mask, n])
-                else:
-                    entry[4] += n
-        for mkn, route, n in res["k3"]:
-            routes = k3.calls.setdefault(tuple(mkn), {})
-            routes[route] = routes.get(route, 0) + n
+        _join_calls(res, k1, k2, k3)
     emit("mesh_path", stage="two_ranks_total",
          seconds=time.perf_counter() - t0, launches=launches)
-    launches["mha_qkv_fwd"] += one_rank["mha_qkv_fwd"]
+    http = run_mesh_http(k1, k2, k3)
+    launches["mha_qkv_fwd"] += one_rank["mha_qkv_fwd"] + http["mha_qkv_fwd"]
     launches["mha_qkv_bwd"] += one_rank["mha_qkv_bwd"]
+    launches["int8_matmul"] += http["int8_matmul"]
     return launches
+
+
+def _join_calls(res, k1, k2, k3, device="cuda") -> None:
+    """A rank's K1/K2/K3 calls by shape (``_rank_launches``) join ``k1``,
+    ``k2`` and ``k3`` for the kernel checks (masks rebuilt on
+    ``device``)."""
+    import torch
+    dev = torch.device(device)
+    for rec, calls in ((k1, res["k1"]), (k2, res["k2"])):
+        for shape, heads, dt, (kind, real, L), n in calls:
+            mask = pad_mask(real, L, "causal" in kind, dev)
+            dtype = getattr(torch, dt)
+            entry = next((e for e in rec.calls if e[:3] == [
+                tuple(shape), heads, dtype] and torch.equal(e[3], mask)),
+                None)
+            if entry is None:
+                rec.calls.append([tuple(shape), heads, dtype, mask, n])
+            else:
+                entry[4] += n
+    for mkn, route, n in res["k3"]:
+        routes = k3.calls.setdefault(tuple(mkn), {})
+        routes[route] = routes.get(route, 0) + n
+
+
+#: mesh_path (c): seconds for the two serving ranks to come up (predictor
+#: build, static scales loaded, two warm-up batches), and, after SIGTERM to
+#: rank 0, for both to exit
+MESH_HTTP_START_S = 300
+MESH_HTTP_EXIT_S = 60
+
+
+def run_mesh_http(k1, k2, k3, device="cuda") -> dict:
+    """(c) The port's serve CLI with ``--http 127.0.0.1:0 --mesh 1,2
+    --quantize w8a8`` (the static scales ``serve_path`` saved) on two ranks
+    sharing the card over gloo (``serve_worker``): rank 0 serves, rank 1
+    joins each batch. 8 concurrent single images, then one JSON batch of
+    8; each answer held to a one-rank w8a8 Predictor in this process on
+    the image inside a batch (static scales) or alone (the 1-row bucket),
+    within ``MESH_PROBS_ATOL``. Then SIGTERM to rank 0: both ranks
+    must exit 0 within ``MESH_HTTP_EXIT_S``. Each rank's K3 launches are
+    50 per image forward and its K1 launches 12 (and 12 for the class
+    prompts' text encode); their calls join the kernel checks. Returns the ranks' K1 (bf16) and K3 launches."""
+    import signal
+    import subprocess
+    import numpy as np
+    from PIL import Image
+    from clip_calibration_tpu_torch.data.datasets.synthetic import _classname
+    from clip_calibration_tpu_torch.models.clip import PRESETS
+    from clip_calibration_tpu_torch.serving import Predictor
+    d = osp.join(WORK, "mesh", "http")
+    os.makedirs(d, exist_ok=True)
+    names_file = osp.join(WORK, "serve", "classes.txt")
+    scales = osp.join(WORK, "serve", "act_scales.npz")
+    argv = ["--device", device, "--backbone", "ViT-B/16",
+            "--classnames-file", names_file, "--quantize", "w8a8",
+            "--act-scales", scales, "--batch-size", "64",
+            "--max-wait-ms", "20", "--http", "127.0.0.1:0", "--mesh", "1,2"]
+    port = _free_port()
+    outs = [osp.join(d, f"rank{r}.json") for r in range(2)]
+    logs = [osp.join(d, f"rank{r}.log") for r in range(2)]
+    t0 = time.perf_counter()
+    files = [open(log, "w") for log in logs]
+    procs = [subprocess.Popen(
+        [sys.executable, osp.abspath(__file__), "--serve-worker", str(r),
+         str(port), outs[r], *argv], stdout=files[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        url = _serving_url(procs, logs, MESH_HTTP_START_S)
+        start_s = time.perf_counter() - t0
+        imgs = osp.join(WORK, "serve", "imgs")
+        paths = [osp.join(imgs, p) for p in sorted(os.listdir(imgs))[:16]]
+        blobs = [open(p, "rb").read() for p in paths]
+        answers = _concurrent_posts(url, blobs[:8])
+        batch_rows = _post(url, json.dumps({"images": [
+            base64.b64encode(b).decode() for b in blobs[8:]]}).encode(),
+            "application/json")["predictions"]
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        t1 = time.perf_counter()
+        procs[0].send_signal(signal.SIGTERM)
+        for p in procs:
+            p.wait(timeout=MESH_HTTP_EXIT_S)
+        exit_s = time.perf_counter() - t1
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    if [p.returncode for p in procs] != [0, 0]:
+        raise AssertionError("mesh_path http: exit codes "
+                             f"{[p.returncode for p in procs]}\n" + "\n".join(
+                                 open(log).read()[-4000:] for log in logs))
+    ranks = [json.load(open(o)) for o in outs]
+    # the answers against one rank: the image inside a batch (static
+    # scales) or alone (the 1-row bucket's dynamic ones)
+    with open(osp.join(d, "one_rank.console.txt"), "w") as con:
+        sys.stdout = con
+        try:
+            one = Predictor("ViT-B/16", [_classname(c) for c in range(50)],
+                            quantize="w8a8", act_scales=scales,
+                            batch_size=64, device=device)
+        finally:
+            sys.stdout = sys.__stdout__
+    images = np.stack([np.asarray(Image.open(p).convert("RGB"))
+                       for p in paths])
+    refs = [one.predict(images)] + [one.predict(images[i:i + 1])
+                                    for i in range(16)]
+    gaps = []
+    for i, row in enumerate([answers[i] for i in range(8)] + batch_rows):
+        ref, j = min([(refs[0], i), (refs[1 + i], 0)], key=lambda c: abs(
+            row["confidence"] - float(c[0]["confidences"][c[1]])))
+        gap = abs(row["confidence"] - float(ref["confidences"][j]))
+        top2 = np.sort(ref["probs"][j])[-2:]
+        if gap > MESH_PROBS_ATOL or (
+                top2[1] - top2[0] > 2 * MESH_PROBS_ATOL
+                and row["pred"] != one.classnames[int(ref["preds"][j])]):
+            raise AssertionError(f"mesh_path http: answer {i} {row} "
+                                 f"differs from one rank's")
+        gaps.append(gap)
+    launches = {"mha_qkv_fwd": 0, "int8_matmul": 0}
+    cfg = PRESETS["ViT-B/16"]
+    per_forward = k3_per_w8a8_forward()
+    for res in ranks:
+        c = res["counters"]
+        forwards = c["int8_matmul"] // per_forward
+        # K1: every image forward's layers, and the class prompts' text
+        # encode once
+        if not (forwards and c["int8_matmul"] == per_forward * forwards
+                and c["mha_qkv"] == cfg.vision_layers * forwards
+                + cfg.transformer_layers
+                and c["mha_qkv_bwd"] == 0
+                and c == ranks[0]["counters"]) or res["k3_without_kmajor"]:
+            raise AssertionError(f"mesh_path http rank {res['rank']}: "
+                                 f"launches {c}")
+        launches["mha_qkv_fwd"] += c["mha_qkv"]
+        launches["int8_matmul"] += c["int8_matmul"]
+        _join_calls(res, k1, k2, k3, device)
+    emit("mesh_path", stage="http_two_ranks", command="serve " + " ".join(
+        argv[2:]), weights="seeded random init (no accuracy claim)",
+         start_seconds=start_s, exit_seconds=exit_s,
+         exit_codes=[p.returncode for p in procs],
+         requests=stats["requests"], batches=stats["batches"],
+         mean_batch=stats["mean_batch"],
+         confidence_max_abs_diff=max(gaps),
+         probs_atol=MESH_PROBS_ATOL,
+         launches_per_rank={r["rank"]: r["counters"] for r in ranks},
+         int8_matmul_by_shape={f"{mkn} {route}": n
+                               for mkn, route, n in ranks[0]["k3"]})
+    return launches
+
+
+def _serving_url(procs, logs, limit: float) -> str:
+    """The ``serving on http://...`` URL rank 0 prints, waited for at most
+    ``limit`` seconds (a rank that exits first fails the phase)."""
+    deadline = time.monotonic() + limit
+    while time.monotonic() < deadline:
+        for line in open(logs[0]).read().splitlines():
+            if line.startswith("serving on http://"):
+                return line.split()[2]
+        if any(p.poll() is not None for p in procs):
+            break
+        time.sleep(0.5)
+    raise AssertionError("mesh_path http: no server\n" + "\n".join(
+        open(log).read()[-4000:] for log in logs))
+
+
+def _post(url, body, ctype):
+    req = urllib.request.Request(url + "/predict", data=body,
+                                 headers={"Content-Type": ctype},
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def _concurrent_posts(url, blobs) -> dict:
+    """One POST of each PNG in ``blobs``, all at once; their answers by
+    index."""
+    import threading
+    answers, errors = {}, []
+
+    def hit(i):
+        try:
+            answers[i] = _post(url, blobs[i], "image/png")
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=hit, args=(i,))
+               for i in range(len(blobs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    if errors or len(answers) != len(blobs):
+        raise AssertionError(f"HTTP requests failed: {errors}")
+    return answers
 
 
 def _result_block(log_path: str) -> str:
@@ -2029,9 +2331,7 @@ def _http_round(pred, classnames, images, blobs):
     """serve_http over ``pred``: 8 concurrent single images, then one JSON
     batch of 8; every answer held to a direct ``predict`` of the batch the
     server served it in (recorded by wrapping ``pred.predict``)."""
-    import base64
     import threading
-    import urllib.request
     from clip_calibration_tpu_torch.config import get_cfg_default
     from clip_calibration_tpu_torch.data.transforms import build_transform
     from clip_calibration_tpu_torch.http_server import serve_http
@@ -2053,41 +2353,19 @@ def _http_round(pred, classnames, images, blobs):
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     host, port = srv.server_address[:2]
-
-    def post(body, ctype):
-        req = urllib.request.Request(
-            f"http://{host}:{port}/predict", data=body,
-            headers={"Content-Type": ctype}, method="POST")
-        with urllib.request.urlopen(req, timeout=120) as r:
-            return json.loads(r.read())
-
+    url = f"http://{host}:{port}"
     try:
-        answers, errors = {}, []
-
-        def hit(i):
-            try:
-                answers[i] = post(blobs[i], "image/png")
-            except Exception as e:  # noqa: BLE001 — raised below
-                errors.append(e)
-
-        threads = [threading.Thread(target=hit, args=(i,)) for i in range(8)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=120)
+        answers = _concurrent_posts(url, blobs[:8])
         body = json.dumps({"images": [base64.b64encode(b).decode()
                                       for b in blobs[8:16]]}).encode()
-        batch_rows = post(body, "application/json")["predictions"]
-        with urllib.request.urlopen(f"http://{host}:{port}/stats",
-                                    timeout=30) as r:
+        batch_rows = _post(url, body, "application/json")["predictions"]
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
             stats = json.loads(r.read())
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=30)
         pred.predict = direct
-    if errors or len(answers) != 8:
-        raise AssertionError(f"HTTP requests failed: {errors}")
     # the server's batches, predicted again directly: the same bits
     for batch, out in served:
         again = direct(batch)
@@ -2611,14 +2889,19 @@ def fp32_hmma(library: str) -> dict:
 
 def main() -> int:
     import torch
-    if len(sys.argv) == 5 and sys.argv[1] == "--mesh-worker":
-        # one rank of mesh_path (b), started by run_mesh_path
+    if len(sys.argv) >= 5 and sys.argv[1] in ("--mesh-worker",
+                                              "--serve-worker"):
+        # one rank of mesh_path (b) or (c), started by run_mesh_path
         if not torch.cuda.is_available():
             return 2
         sys.path.insert(0, ROOT)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        rank, port, out = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+        if sys.argv[1] == "--mesh-worker":
+            mesh_worker(rank, port, out)
+        else:
+            serve_worker(rank, port, out, sys.argv[5:])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs the card",
@@ -2709,6 +2992,15 @@ def main() -> int:
                                  f"{shape}, {heads} heads")
     cases_bwd = timed(check_kernels_bwd, device, k2.calls)
     cases_int8 = timed(check_int8_matmul, device, k3.calls)
+    # K3 at mesh_path's TP shapes: each rank's wqkv, wo, w_fc and w_proj
+    # products over 64 images (its columns of wqkv and w_fc, rows of wo
+    # and w_proj)
+    for mkn in ([64 * 208, 768, 1152], [64 * 208, 384, 768],
+                [64 * 208, 768, 1536], [64 * 208, 1536, 768]):
+        if not any(c["mkn"] == mkn and c["main_path_launches"]
+                   for c in cases_int8):
+            raise AssertionError(f"int8_matmul not checked at mesh_path's "
+                                 f"TP shape {mkn}")
     cases_k4 = timed(check_int8_attention, device,
                      {r["variant"]: r["launches"] for r in probe_rows})
     timed(check_towers, device)

@@ -194,12 +194,20 @@ class TrainerX:
         first made the global loss's (``parallel/mesh.py::
         reduce_trainable_grads``, summed over the model ranks when the
         step sharded the class axis); gradients that are already equal on
-        every rank come out of its data average unchanged."""
+        every rank come out of its data average unchanged.
+
+        A trainable the step left without a gradient gets zeros, so it is
+        stepped as optax steps every leaf (torch's optimizers skip a
+        ``None`` gradient: no weight decay, no momentum), and every rank
+        joins the same collectives."""
         slot = self._models[name]
         optim = self.optimizer(name)
-        P.reduce_trainable_grads(
-            [p for g in optim.param_groups for p in g["params"]],
-            self.mesh, model_sharded=self.class_sharded)
+        params = [p for g in optim.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        P.reduce_trainable_grads(params, self.mesh,
+                                 model_sharded=self.class_sharded)
         set_lr(optim, slot["sched"](slot["step"]))
         optim.step()
         slot["step"] += 1

@@ -143,7 +143,7 @@ class Block(nn.Module):
         ``parallel/tp.py::TowerTP``: this rank's heads and hidden
         features, the two partial products summed over the model ranks."""
         if tp is not None:
-            return self._forward_tp(h, n_heads, mask, tp)
+            return self._forward_tp(h, n_heads, mask, tp, qmode, stats)
         a = self.attn
         ln1 = self.ln_1(h)
         attn, ctx = multi_head_attention(ln1, a.wqkv, a.bqkv, a.wo, a.bo,
@@ -155,27 +155,46 @@ class Block(nn.Module):
         y = quick_gelu(qdot(fc_in, m.w_fc, qmode) + m.b_fc.to(fc_in.dtype))
         out = h + (qdot(y, m.w_proj, qmode) + m.b_proj.to(y.dtype))
         if stats is not None:
-            L = stats["real_len"]
-            for site, t in ((("attn", "wqkv"), ln1), (("attn", "wo"), ctx),
-                            (("mlp", "w_fc"), fc_in),
-                            (("mlp", "w_proj"), y)):
-                stats[site].append(t[:, :L].float().abs().amax())
+            _record_stats(stats, ln1, ctx, fc_in, y)
         return out
 
-    def _forward_tp(self, h, n_heads: int, mask, tp):
+    def _forward_tp(self, h, n_heads: int, mask, tp, qmode: str,
+                    stats: Optional[dict]):
+        """This rank's slices (``tp.block``): ``wqkv`` and ``w_fc`` by
+        columns on the whole input rows, ``wo`` and ``w_proj`` by rows on
+        this rank's features, their partial products summed by
+        ``tp.all_reduce``; a dynamic activation scale of those two takes
+        the whole row's absmax (``tp.max``)."""
         w = tp.block(self)
-        qkv = self.ln_1(h) @ w["wqkv"].to(h.dtype) + w["bqkv"].to(h.dtype)
+        ln1 = self.ln_1(h)
+        qkv = qdot(ln1, w["wqkv"], qmode) + w["bqkv"].to(h.dtype)
         # the fused attention (K1) on this rank's heads, looked up at call
         # time as multi_head_attention does
         ctx = _attention.mha_qkv(qkv.contiguous(),
                                  mask.float().contiguous(),
                                  tp.heads(n_heads))
-        h = h + (tp.all_reduce(ctx @ w["wo"].to(h.dtype))
+        h = h + (tp.all_reduce(qdot(ctx, w["wo"], qmode, tp.max))
                  + self.attn.bo.to(h.dtype))
-        y = quick_gelu(self.ln_2(h) @ w["w_fc"].to(h.dtype)
-                       + w["b_fc"].to(h.dtype))
-        return h + (tp.all_reduce(y @ w["w_proj"].to(h.dtype))
-                    + self.mlp.b_proj.to(h.dtype))
+        fc_in = self.ln_2(h)
+        y = quick_gelu(qdot(fc_in, w["w_fc"], qmode) + w["b_fc"].to(h.dtype))
+        out = h + (tp.all_reduce(qdot(y, w["w_proj"], qmode, tp.max))
+                   + self.mlp.b_proj.to(h.dtype))
+        if stats is not None:
+            _record_stats(stats, ln1, ctx, fc_in, y, tp)
+        return out
+
+
+def _record_stats(stats: dict, ln1, ctx, fc_in, y, tp=None) -> None:
+    """Appends the absmax over the first ``stats["real_len"]`` tokens of
+    each quantized-matmul input of a block; under ``tp`` the row-cut
+    sites' (``wo``, ``w_proj``) over every model rank's features."""
+    L = stats["real_len"]
+    for site, t in ((("attn", "wqkv"), ln1), (("attn", "wo"), ctx),
+                    (("mlp", "w_fc"), fc_in), (("mlp", "w_proj"), y)):
+        amax = t[:, :L].float().abs().amax()
+        if tp is not None and site[1] in ("wo", "w_proj"):
+            amax = tp.max(amax)
+        stats[site].append(amax)
 
 
 class VisionTower(nn.Module):
@@ -317,11 +336,8 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
     gradients; memory for the large text fan-outs.
     tp: optional ``parallel/tp.py::TowerTP``: tensor-parallel blocks
     (this rank's heads and MLP hidden features, two ``all_reduce`` a
-    layer), forward only, plain weights only; None runs the whole blocks.
+    layer), forward only; None runs the whole blocks.
     """
-    if tp is not None and (collect_act_stats or qmode != "dequant"):
-        from ..parallel.tp import INT8_TP_ERROR
-        raise NotImplementedError(INT8_TP_ERROR)
     transformer.forwards += 1
     L = x.shape[1]
     Lp = ((L + 15) // 16) * 16
@@ -459,15 +475,15 @@ def eot_seq_len(tokens_or_eot) -> int:
 
 def encode_text(model: CLIP, cfg: CLIPConfig, tokens: torch.Tensor,
                 dtype=torch.bfloat16, seq_len: Optional[int] = None,
-                tp=None) -> torch.Tensor:
+                tp=None, qmode: str = "dequant") -> torch.Tensor:
     """Raw-token text encode (reference ``clip/model.py:598-613``); ``tp``
-    as ``transformer``."""
+    and ``qmode`` as ``transformer``."""
     x = model.text.token_embedding[tokens].to(dtype)
     # EOT from the UNTRUNCATED row; encode_text_embedded then rejects a
     # seq_len that would drop it
     eot_pos = tokens.argmax(dim=-1)
     return encode_text_embedded(model, cfg, x, eot_pos, seq_len=seq_len,
-                                tp=tp)
+                                qmode=qmode, tp=tp)
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:

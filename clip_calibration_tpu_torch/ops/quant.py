@@ -120,10 +120,16 @@ def quantize_activations_int8(x: torch.Tensor):
 QMODES = ("dequant", "w8a8", "w8a8_dynamic", "w8a8_kernel")
 
 
-def qdot(x: torch.Tensor, w, qmode: str = "dequant") -> torch.Tensor:
+def qdot(x: torch.Tensor, w, qmode: str = "dequant",
+         row_amax=None) -> torch.Tensor:
     """``x @ w`` for a plain or quantized weight: x [..., K], w [K, N];
     leading dims of x ride along. Plain weights take the ordinary matmul
-    in x's dtype whatever ``qmode`` says."""
+    in x's dtype whatever ``qmode`` says.
+
+    ``row_amax``: for a product over some of the contraction features
+    (a row-cut weight of a tensor-parallel tower, ``parallel/tp.py``), the
+    function that turns x's per-row absmax [..., 1] into the whole row's;
+    the dynamic per-row activation scales are taken from it."""
     if not is_quantized(w):
         return x @ w.to(x.dtype)
     if qmode == "dequant":
@@ -135,7 +141,12 @@ def qdot(x: torch.Tensor, w, qmode: str = "dequant") -> torch.Tensor:
         return rescaled_int8_matmul(_to_int8(x.float(), w.act_scale),
                                     w.act_scale, w.int8, w.scale, x.dtype,
                                     w.kmajor)
-    return w8a8_matmul(x, w.int8, w.scale, w.kmajor)
+    if row_amax is None:
+        return w8a8_matmul(x, w.int8, w.scale, w.kmajor)
+    xf = x.float()
+    xs = _absmax_scale(row_amax(xf.abs().amax(dim=-1, keepdim=True)))
+    return rescaled_int8_matmul(_to_int8(xf, xs), xs, w.int8, w.scale,
+                                x.dtype, w.kmajor)
 
 
 # ---------------------------------------------------------------------------

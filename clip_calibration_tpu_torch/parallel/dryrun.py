@@ -315,6 +315,14 @@ def product_trainers(mesh: Mesh, device="cuda", root: Optional[str] = None,
     return out
 
 
+#: the int8 TP checks against one rank, max |diff| of the features (the
+#: JAX dry run's bounds, ``__graft_entry__.py``): weight-only int8 sums
+#: the same products in another order; static w8a8 also rescales each
+#: rank's partial int32 product before the sum
+INT8_TP_TOL = 1e-4
+W8A8_TP_TOL = 1e-3
+
+
 @torch.inference_mode()
 def tp_tower(mesh: Mesh, device="cuda", cfg=TP_CFG, model=None,
              images: Optional[torch.Tensor] = None,
@@ -322,9 +330,12 @@ def tp_tower(mesh: Mesh, device="cuda", cfg=TP_CFG, model=None,
     """The ViT and text towers with heads and MLP hidden features over the
     model axis (``parallel/tp.py``), this data rank's rows, against the
     whole towers on one rank: returns the gathered TP features and the
-    unsharded ones (host arrays). Int8 weights under TP must raise."""
+    unsharded ones (host arrays). Then the JAX dry run's two int8 checks:
+    the weight-only int8 image tower, and the static-w8a8 one (scales
+    calibrated on the same images, unsharded), each TP against one rank
+    within ``INT8_TP_TOL`` / ``W8A8_TP_TOL``; their max |diff| returned
+    as ``int8_err`` and ``w8a8_err``."""
     from ..ops import quant as Q
-    from .tp import INT8_TP_ERROR
     device = resolve_device(device)
     tp = tower_tp(mesh)
     if tp is None:
@@ -353,15 +364,19 @@ def tp_tower(mesh: Mesh, device="cuda", cfg=TP_CFG, model=None,
         out[name] = (got.float().cpu().numpy(),
                      fn(x, None).float().cpu().numpy())
     qmodel = Q.quantize_clip_params(model)
-    try:
-        M.encode_image(qmodel, cfg, local_rows(images, mesh), dtype=dtype,
-                       tp=tp)
-    except NotImplementedError as e:
-        if str(e) != INT8_TP_ERROR:
-            raise
-        out["int8_raises"] = True
-    else:
-        raise AssertionError("int8 weights under TP did not raise")
+    smodel = Q.attach_act_scales(qmodel, Q.calibrate_image_act_scales(
+        qmodel, cfg, images))
+    for name, m, qmode, tol in (("int8", qmodel, "dequant", INT8_TP_TOL),
+                                ("w8a8", smodel, "w8a8", W8A8_TP_TOL)):
+        got = gather_data(M.encode_image(m, cfg, local_rows(images, mesh),
+                                         dtype=dtype, qmode=qmode, tp=tp),
+                          mesh)
+        want = M.encode_image(m, cfg, images, dtype=dtype, qmode=qmode)
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"dryrun: {name} TP tower differs from one "
+                                 f"rank: max|diff| {err} > {tol}")
+        out[f"{name}_err"] = err
     return out
 
 
@@ -416,7 +431,9 @@ def dryrun_multichip(device="cuda", root: Optional[str] = None) -> dict:
         for name in ("image", "text"):
             _check(f"TP {name} tower", *res["tp"][name])
         print(f"dryrun TP tower: heads/hidden over 'model' OK (mesh "
-              f"{mesh.shape}); int8 weights under TP raise")
+              f"{mesh.shape}); int8 TP tower max|diff| vs one rank "
+              f"{res['tp']['int8_err']:.2e}, static w8a8 "
+              f"{res['tp']['w8a8_err']:.2e}")
     return res
 
 

@@ -337,15 +337,12 @@ def reduce_grads(grads, mesh: Optional[Mesh],
 
 def reduce_trainable_grads(params, mesh: Optional[Mesh],
                            model_sharded: bool = False) -> None:
-    """``reduce_grads`` on the ``.grad`` of each of ``params``, in place
-    (a missing gradient counts as zeros, so every rank joins the same
-    collectives)."""
+    """``reduce_grads`` on the ``.grad`` of each of ``params``, in place;
+    every one must have a gradient (``engine/trainer.py::optimizer_step``
+    gives a missing one zeros)."""
     if mesh is None or mesh.size == 1:
         return
     params = list(params)
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
     for p, g in zip(params, reduce_grads([p.grad for p in params], mesh,
                                          model_sharded)):
         p.grad = g

@@ -21,9 +21,16 @@ slices are copies made at a block's first TP forward. The JAX TP path
 runs the einsum attention (its Pallas kernel is a one-device program);
 the port runs K1 on the local heads: the same math, on the kernel.
 
+Int8 weights (``ops/quant.py::QuantizedWeight``) are cut the same way:
+the int8 weight, its K-major copy (which K3 reads) and, for the column
+cuts, the per-output-channel scales; the static activation scale stays
+whole. A row cut's product (``wo``, ``w_proj``) contracts features that
+are split over the model ranks, so its dynamic per-row activation scale
+takes the absmax over the whole row (``max``, a MAX ``all_reduce``), as
+the JAX package's GSPMD-partitioned reduction does.
+
 Scope: the ViT towers and the text tower. The ModifiedResNet tower is
-data-parallel only (``models/clip.py::encode_image`` raises). Int8
-weights under TP are not ported (``ROADMAP.md`` queue 1) and raise.
+data-parallel only (``models/clip.py::encode_image`` raises).
 """
 
 from __future__ import annotations
@@ -34,11 +41,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..ops.quant import QuantizedWeight, is_quantized
 from .mesh import Mesh
-
-INT8_TP_ERROR = ("int8 weights on a tensor-parallel tower (model axis > 1) "
-                 "are not ported yet (ROADMAP.md queue 1: int8 weights "
-                 "under TP); serve them on a data-only mesh")
 
 
 class TowerTP:
@@ -67,28 +71,26 @@ class TowerTP:
         return got
 
     def _cut(self, block) -> dict:
-        from ..ops.quant import is_quantized
         a, mlp = block.attn, block.mlp
-        if any(is_quantized(w) for w in (a.wqkv, a.wo, mlp.w_fc,
-                                         mlp.w_proj)):
-            raise NotImplementedError(INT8_TP_ERROR)
         D = a.wo.shape[0]
         if D % self.m:
             raise ValueError(f"width {D} does not split over {self.m}")
         dl = D // self.m
-        cols = torch.cat([torch.arange(k * D + self.r * dl,
-                                       k * D + (self.r + 1) * dl)
-                          for k in range(3)]).to(a.wqkv.device)
+        dev = a.bqkv.device
+        heads = torch.cat([torch.arange(k * D + self.r * dl,
+                                        k * D + (self.r + 1) * dl)
+                           for k in range(3)]).to(dev)
+        feats = torch.arange(self.r * dl, (self.r + 1) * dl, device=dev)
         hid = mlp.w_fc.shape[1] // self.m
-        hs = slice(self.r * hid, (self.r + 1) * hid)
+        hidden = torch.arange(self.r * hid, (self.r + 1) * hid, device=dev)
         with torch.no_grad():
             return {
-                "wqkv": a.wqkv.index_select(1, cols).contiguous(),
-                "bqkv": a.bqkv.index_select(0, cols).contiguous(),
-                "wo": a.wo[self.r * dl:(self.r + 1) * dl].contiguous(),
-                "w_fc": mlp.w_fc[:, hs].contiguous(),
-                "b_fc": mlp.b_fc[hs].contiguous(),
-                "w_proj": mlp.w_proj[hs].contiguous(),
+                "wqkv": _columns(a.wqkv, heads),
+                "bqkv": a.bqkv.index_select(0, heads),
+                "wo": _rows(a.wo, feats),
+                "w_fc": _columns(mlp.w_fc, hidden),
+                "b_fc": mlp.b_fc.index_select(0, hidden),
+                "w_proj": _rows(mlp.w_proj, hidden),
             }
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
@@ -99,6 +101,32 @@ class TowerTP:
         t = t.contiguous()
         dist.all_reduce(t, group=self.mesh.model_group)
         return t
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the model ranks (in place): a row's absmax
+        from each rank's share of its features."""
+        t = t.contiguous()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.model_group)
+        return t
+
+
+def _columns(w, idx: torch.Tensor):
+    """The columns ``idx`` of a [K, N] weight, plain or int8 (with their
+    scales and the matching rows of the K-major copy), contiguous."""
+    if not is_quantized(w):
+        return w.index_select(1, idx)
+    return QuantizedWeight(w.int8.index_select(1, idx),
+                           w.scale.index_select(1, idx), w.act_scale,
+                           w.kmajor.index_select(0, idx))
+
+
+def _rows(w, idx: torch.Tensor):
+    """The rows ``idx`` of a [K, N] weight, plain or int8 (every column's
+    scale kept, the matching columns of the K-major copy), contiguous."""
+    if not is_quantized(w):
+        return w.index_select(0, idx)
+    return QuantizedWeight(w.int8.index_select(0, idx), w.scale,
+                           w.act_scale, w.kmajor.index_select(1, idx))
 
 
 def tower_tp(mesh: Optional[Mesh]) -> Optional[TowerTP]:

@@ -35,9 +35,10 @@ every rank runs the same command with the ``CC_COORD_ADDR`` /
 on ``--device cpu``); each data rank encodes its slice of every batch,
 the ViT tower runs tensor-parallel over a model axis m > 1, and rank 0
 writes ``--out``. For a trainer checkpoint the shape feeds
-``TPU.MESH_SHAPE``. ``--http`` over a mesh is not ported yet
-(``ROADMAP.md``) and raises. TF32 stays off, as in the port's
-``train.py``.
+``TPU.MESH_SHAPE``. ``--http`` over a mesh serves on rank 0; the other
+ranks build the same predictor and join each batch
+(``parallel/http_mesh.py``). SIGTERM ends the server as Ctrl-C does, and
+then every rank exits 0. TF32 stays off, as in the port's ``train.py``.
 """
 
 from __future__ import annotations
@@ -193,11 +194,6 @@ def _load_images(paths, resolution: int, on_device: bool,
     return np.stack(arrs)
 
 
-HTTP_MESH_ERROR = ("--http over a mesh is not ported yet (ROADMAP.md "
-                   "queue 1: HTTP serving over a mesh, the follower loop "
-                   "on the other ranks); serve HTTP on one rank")
-
-
 def _mesh_shape(spec: str) -> tuple:
     return tuple(int(x) for x in spec.split(","))
 
@@ -280,14 +276,61 @@ def build_predictor(args, classnames):
     return pred
 
 
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def _serve_http(args, pred, classnames, resolution: int, device) -> int:
+    """The resident server on rank 0 (on a mesh its predictor behind
+    ``MeshPredictor``); every other rank follows it. Ends on Ctrl-C or
+    SIGTERM; the followers get the stop code before the server closes."""
+    import signal
+
+    from .http_server import serve_http
+    from .parallel.http_mesh import MeshPredictor, follow
+    from .parallel.mesh import world
+
+    rank, n = world()
+    if rank != 0:
+        follow(pred, device)
+        return 0
+    front = MeshPredictor(pred, device) if n > 1 else pred
+    old = signal.signal(signal.SIGTERM, _interrupt)
+    server = None
+    try:
+        # pre-warm before accepting traffic, not on the first clients'
+        # requests (kernel builds, allocator growth): the lone-request
+        # bucket and the full coalesced batch, the JAX package's two
+        front.predict(np.zeros((1, resolution, resolution, 3), np.uint8))
+        front.predict(np.zeros((args.batch_size, resolution, resolution,
+                                3), np.uint8))
+        server = serve_http(
+            args.http, front, classnames,
+            _host_transform(args, resolution), topk=args.topk,
+            max_wait_ms=args.max_wait_ms, backbone=args.backbone)
+        host, port = server.server_address[:2]
+        print(f"serving on http://{host}:{port}  "
+              f"(POST /predict, GET /healthz /classes /stats)",
+              flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+    finally:
+        if front is not pred:
+            front.stop()
+        if server is not None:
+            server.server_close()
+        signal.signal(signal.SIGTERM, old)
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
 
     from .tools.device import resolve_device
 
     args = build_parser().parse_args(argv)
-    if args.mesh and args.http is not None:
-        raise NotImplementedError(HTTP_MESH_ERROR)
     rank = 0
     if args.mesh and os.environ.get("CC_COORD_ADDR"):
         # one process per device: join the cluster before any device
@@ -295,7 +338,7 @@ def main(argv=None) -> int:
         from .parallel.mesh import initialize_distributed
         initialize_distributed(device=args.device)
         rank = torch.distributed.get_rank()
-    resolve_device(args.device)  # raises without a card before any work
+    device = resolve_device(args.device)  # raises without a card
     # fp32 serving stays full fp32 on the card (no TF32 matmuls or convs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -318,28 +361,7 @@ def main(argv=None) -> int:
             raise SystemExit("--preprocess-on-device is a batch-mode "
                              "knob; HTTP mode decodes per request "
                              "host-side")
-        from .http_server import serve_http
-        # pre-warm before accepting traffic, not on the first clients'
-        # requests (kernel builds, allocator growth): the lone-request
-        # bucket and the full coalesced batch, the JAX package's two
-        pred.predict(np.zeros((1, resolution, resolution, 3), np.uint8))
-        pred.predict(np.zeros((args.batch_size, resolution, resolution,
-                               3), np.uint8))
-        server = serve_http(
-            args.http, pred, classnames,
-            _host_transform(args, resolution), topk=args.topk,
-            max_wait_ms=args.max_wait_ms, backbone=args.backbone)
-        host, port = server.server_address[:2]
-        print(f"serving on http://{host}:{port}  "
-              f"(POST /predict, GET /healthz /classes /stats)",
-              flush=True)
-        try:
-            server.serve_forever()
-        except KeyboardInterrupt:
-            pass
-        finally:
-            server.server_close()
-        return 0
+        return _serve_http(args, pred, classnames, resolution, device)
 
     images = _load_images(paths, resolution, args.preprocess_on_device,
                           args)

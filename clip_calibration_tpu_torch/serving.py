@@ -25,9 +25,10 @@ On a process mesh (``parallel/mesh.py``; ``Predictor(mesh=...)``, or a
 rank calls ``predict`` with the same images, ``batch_size`` rounds up to
 a multiple of the data axis, each data rank encodes its slice of every
 chunk (the ViT tower tensor-parallel over a model axis > 1,
-``parallel/tp.py``), and the probabilities are gathered, so every rank
-returns the whole result. Int8 weights under tensor parallelism, and
-HTTP serving over a mesh, are not ported yet (``ROADMAP.md``) and raise.
+``parallel/tp.py``, int8 weights included), and the probabilities are
+gathered, so every rank returns the whole result. HTTP serving over a
+mesh runs ``parallel/http_mesh.py``: rank 0 serves, the other ranks join
+each batch.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from .ops.preprocess import (CLIP_PIXEL_MEAN, CLIP_PIXEL_STD,
                              device_preprocess, normalize_images)
 from .ops.scoring import fused_dac_scores
 from .parallel import mesh as P
-from .parallel.tp import INT8_TP_ERROR, tower_tp
+from .parallel.tp import tower_tp
 from .tools.device import resolve_device
 
 # Max chunks enqueued on the device ahead of the first fetch of a predict()
@@ -146,8 +147,6 @@ class Predictor:
         self.tp = tower_tp(mesh)
         if mesh is not None:
             self.batch_size = _round_up(self.batch_size, mesh.dims[0])
-        if self.tp is not None and quantize is not None:
-            raise NotImplementedError(INT8_TP_ERROR)
         self.preprocess_on_device = bool(preprocess_on_device)
         if quantize == "w8a8_kernel":
             raise ValueError(
@@ -292,15 +291,13 @@ class Predictor:
                                     normalized=True)
         return P.gather_data(probs, self.mesh)
 
-    def predict(self, images: np.ndarray) -> dict:
-        """images: uint8 [N, H, W, 3] at the model resolution, or, with
-        ``preprocess_on_device``, at any uniform source size. Returns
-        dict(probs [N, C] fp32, preds [N], confidences [N]). Runs under
-        its own ``inference_mode`` (the HTTP server calls it from a
-        worker thread)."""
+    def check_images(self, images) -> np.ndarray:
+        """``images`` as an array, after the checks ``predict`` makes
+        before any device work or collective (a ValueError names what is
+        wrong); an empty batch passes."""
         images = np.asarray(images)
-        if images.size == 0:  # upstream filters can drop every image
-            return _empty_result(len(self.classnames))
+        if images.size == 0:
+            return images
         if images.dtype != np.uint8:
             raise ValueError("Predictor.predict expects uint8 images; "
                              "apply host-side geometry first")
@@ -313,6 +310,17 @@ class Predictor:
                 f"{images.shape} — resize host-side "
                 f"(data/transforms.build_transform) or construct with "
                 f"preprocess_on_device=True")
+        return images
+
+    def predict(self, images: np.ndarray) -> dict:
+        """images: uint8 [N, H, W, 3] at the model resolution, or, with
+        ``preprocess_on_device``, at any uniform source size. Returns
+        dict(probs [N, C] fp32, preds [N], confidences [N]). Runs under
+        its own ``inference_mode`` (the HTTP server calls it from a
+        worker thread)."""
+        images = self.check_images(images)
+        if images.size == 0:  # upstream filters can drop every image
+            return _empty_result(len(self.classnames))
         with torch.inference_mode():
             scale = self.model.logit_scale
             if self.temperature is not None:
@@ -487,21 +495,30 @@ class TrainerPredictor:
         lg = lg * self.class_confidence[preds][:, None]
         return torch.softmax(lg, dim=-1)
 
-    def predict(self, images: np.ndarray) -> dict:
-        """images: uint8 [N, H, W, 3] at the model resolution."""
+    def check_images(self, images) -> np.ndarray:
+        """``images`` as an array, after the checks ``predict`` makes
+        before any device work or collective (a ValueError names what is
+        wrong); an empty batch passes."""
         images = np.asarray(images)
-        n_cls = self.trainer.dm.num_classes
         if images.size == 0:
-            return _empty_result(n_cls)
+            return images
+        res = self.trainer.clip_cfg.image_resolution
         if images.dtype != np.uint8 or images.ndim != 4 or \
-                images.shape[-1] != 3:
+                images.shape[1:] != (res, res, 3):
             # float input would be re-scaled into garbage; channels-first
             # would mix channels into spatial positions
             raise ValueError(
-                f"TrainerPredictor.predict expects uint8 [N, H, W, 3] "
-                f"images; got {images.dtype} {images.shape} — apply "
+                f"TrainerPredictor.predict expects uint8 [N, {res}, {res}, "
+                f"3] images; got {images.dtype} {images.shape} — apply "
                 f"host-side geometry first "
                 f"(data/transforms.build_transform)")
+        return images
+
+    def predict(self, images: np.ndarray) -> dict:
+        """images: uint8 [N, H, W, 3] at the model resolution."""
+        images = self.check_images(images)
+        if images.size == 0:
+            return _empty_result(self.trainer.dm.num_classes)
         trainer = self.trainer
         with torch.inference_mode():
             probs = _drain_batched(

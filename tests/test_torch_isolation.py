@@ -107,7 +107,8 @@ def test_parallel_and_loaders_run_with_jax_blocked(tmp_path):
         import clip_calibration_tpu_torch.data.datasets as D
         from clip_calibration_tpu_torch.engine.registry import (
             DATASET_REGISTRY)
-        from clip_calibration_tpu_torch.parallel import dryrun, mesh, tp
+        from clip_calibration_tpu_torch.parallel import (dryrun, http_mesh,
+                                                         mesh, tp)
         for name in ("DescribableTextures", "EuroSAT", "FGVCAircraft",
                      "Food101", "ImageNet", "ImageNetA", "ImageNetR",
                      "ImageNetSketch", "ImageNetV2", "OxfordFlowers",

@@ -426,11 +426,14 @@ def test_tensor_parallel_encode_matches_single_device(fx, group, case,
 
 
 def test_tensor_parallel_rejects_resnet_and_int8():
-    """ResNet towers are data-parallel only (ValueError, as JAX); int8
-    weights under TP are not ported (NotImplementedError naming
-    ROADMAP.md), from encode_image and from Predictor's constructor."""
+    """ResNet towers are data-parallel only (ValueError, as JAX). Int8
+    weights are no longer rejected: each rank cuts its columns of
+    ``wqkv`` (its heads' q, k and v) and ``w_fc`` with their scales, its
+    rows of ``wo`` and ``w_proj`` with every column's scale, the K-major
+    copy to match, all contiguous; the static activation scale stays
+    whole (the encodes are held to one rank in test_torch_int8_tp.py)."""
     from clip_calibration_tpu_torch.models import clip as M
-    from clip_calibration_tpu_torch.ops.quant import quantize_clip_params
+    from clip_calibration_tpu_torch.ops import quant as Q
     from clip_calibration_tpu_torch.parallel.mesh import Mesh
     from clip_calibration_tpu_torch.parallel.tp import tower_tp
     from clip_calibration_tpu_torch.serving import Predictor
@@ -443,14 +446,31 @@ def test_tensor_parallel_rejects_resnet_and_int8():
     with pytest.raises(ValueError, match="data-only"):
         Predictor("RN-Test", ["a", "b"], precision="fp32", mesh=mesh,
                   device="cpu")
-    vit = quantize_clip_params(M.init_clip(
+    vit = Q.quantize_clip_params(M.init_clip(
         M.CLIP(M.PRESETS["ViT-Test"], torch.float32, "cpu"), 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.encode_image(vit, M.PRESETS["ViT-Test"],
-                       torch.zeros((2, 32, 32, 3)), tp=tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor("ViT-Test", ["a", "b"], precision="fp32", mesh=mesh,
-                  quantize="int8", device="cpu")
+    vit = Q.attach_act_scales(vit, Q.calibrate_image_act_scales(
+        vit, vit.cfg, torch.zeros((2, 32, 32, 3))))
+    block = vit.visual.blocks[1]
+    for r in range(2):
+        cut = tower_tp(Mesh((1, 2), r, None, None, (0,))).block(block)
+        D, lo, hid = 64, r * 32, slice(r * 128, (r + 1) * 128)
+        heads = np.concatenate([np.arange(k * D + lo, k * D + lo + 32)
+                                for k in range(3)])
+        whole = {"wqkv": (block.attn.wqkv, np.s_[:, heads]),
+                 "w_fc": (block.mlp.w_fc, np.s_[:, hid]),
+                 "wo": (block.attn.wo, np.s_[lo:lo + 32]),
+                 "w_proj": (block.mlp.w_proj, np.s_[hid])}
+        for key, (w, part) in whole.items():
+            got = cut[key]
+            assert Q.is_quantized(got)
+            assert got.act_scale is w.act_scale
+            for t in (got.int8, got.scale, got.kmajor):
+                assert t.is_contiguous()
+            np.testing.assert_array_equal(got.int8, w.int8.numpy()[part])
+            np.testing.assert_array_equal(got.kmajor, got.int8.T)
+            cols = part[1] if key in ("wqkv", "w_fc") else slice(None)
+            np.testing.assert_array_equal(got.scale,
+                                          w.scale.numpy()[:, cols])
 
 
 # ----------------------------------------------------------------- serving

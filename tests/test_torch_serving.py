@@ -269,16 +269,24 @@ def test_pixel_stats_and_device_preprocess_match_jax():
 
 
 def test_mesh_is_not_ported():
-    """The parts of mesh serving still to port raise, naming ROADMAP.md:
-    int8 weights on a tensor-parallel tower, and HTTP over a mesh (mesh
-    serving itself is held to one rank in test_torch_parallel.py)."""
+    """Mesh serving's int8 and HTTP parts are ported: an int8 and a
+    static-w8a8 Predictor build on a tensor-parallel mesh (the weights quantized, the scales
+    calibrated unsharded; the TP cuts are held to one rank in
+    test_torch_int8_tp.py), and ``--http`` with ``--mesh`` goes on to make
+    the mesh as batch mode does (one process cannot hold 2 ranks; HTTP
+    over 2 processes is test_torch_http_mesh.py)."""
+    from clip_calibration_tpu_torch.ops.quant import is_quantized
     from clip_calibration_tpu_torch.parallel.mesh import Mesh
+    from helpers import golden_test_images
     tp_mesh = Mesh((1, 2), 0, None, None, (0,))
-    for quantize in ("int8", "w8a8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_predictor("ViT-Test", BASE, mesh=tp_mesh,
-                            quantize=quantize)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cal, _ = golden_test_images({0, 1})
+    for quantize, kw in (("int8", {}), ("w8a8", {"calibration_images": cal})):
+        pred = _port_predictor("ViT-Test", BASE, mesh=tp_mesh,
+                               quantize=quantize, **kw)
+        assert pred.tp is not None and pred.quantize == quantize
+        assert is_quantized(pred.model.visual.blocks[0].attn.wo)
+        assert (pred.act_stats is not None) == (quantize == "w8a8")
+    with pytest.raises(ValueError, match="!= 1 ranks"):
         _serve("--classnames", *BASE, "--http", ":0", "--mesh", "1,2")
 
 

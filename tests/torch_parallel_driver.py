@@ -237,6 +237,108 @@ def case_predictor(inp, shape):
     return out
 
 
+#: the int8 modes of the TP towers: (qmode, static activation scales)
+INT8_MODES = {"dequant": ("dequant", False), "w8a8_static": ("w8a8", True),
+              "w8a8": ("w8a8", False), "w8a8_dynamic": ("w8a8_dynamic", True)}
+
+
+def case_int8_tp(inp, shape):
+    """The int8 TP towers in each of ``INT8_MODES``: this data rank's rows
+    through the image tower and the raw-token text tower on one
+    ``TowerTP``, gathered, beside the whole towers on one rank (static
+    scales: the JAX package's, attached on every rank); the calibration
+    statistics under TP and on one rank, of this data rank's rows."""
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.models.weights import params_from_numpy
+    from clip_calibration_tpu_torch.ops import quant as Q
+    from clip_calibration_tpu_torch.parallel.tp import tower_tp
+    mesh = P.make_mesh(shape)
+    tp = tower_tp(mesh)
+    cfg = D.TP_CFG
+    model = params_from_numpy(inp["tp_params"], cfg, torch.float32, "cpu")
+    q = inp["int8_tp"]
+    qm = Q.quantize_clip_params(model, towers=("visual", "text"))
+    static = Q.attach_text_act_scales(
+        Q.attach_act_scales(qm, q["image_stats"]), q["text_stats"])
+    images = torch.as_tensor(inp["tp_images"])
+    tokens = torch.as_tensor(q["tokens"])
+    out = {}
+    with torch.inference_mode():
+        for name, (qmode, scaled) in INT8_MODES.items():
+            m = static if scaled else qm
+            for tower, x, fn in (
+                    ("image", images, lambda x, tp_: M.encode_image(
+                        m, cfg, x, dtype=torch.float32, qmode=qmode,
+                        tp=tp_)),
+                    ("text", tokens, lambda x, tp_: M.encode_text(
+                        m, cfg, x, dtype=torch.float32, qmode=qmode,
+                        tp=tp_))):
+                got = P.gather_data(fn(D.local_rows(x, mesh), tp), mesh)
+                out[f"{tower}/{name}"] = (_host(got), _host(fn(x, None)))
+        # the slices of the blocks that carry the static scales carry them
+        out["static_slices"] = all(
+            tp.block(b)[k].act_scale is not None
+            for b in static.visual.blocks for k in ("wqkv", "wo"))
+        rows = D.local_rows(images, mesh)
+        for key, tp_ in (("stats_tp", tp), ("stats_one", None)):
+            _, stats = M.encode_image(qm, cfg, rows, dtype=torch.float32,
+                                      collect_act_stats=True, tp=tp_)
+            out[key] = Q.stats_to_numpy(stats)
+    return out
+
+
+def case_int8_predictor(inp, shape):
+    """The TP ``Predictor`` with ``quantize`` in int8 and w8a8 (static
+    scales calibrated on every rank, unsharded), on the serving images and
+    on one image (the 1-row bucket)."""
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.serving import Predictor
+    M.PRESETS[TP_PRESET] = D.TP_CFG
+    mesh = P.make_mesh(shape)
+    out = {}
+    for quantize, kw in (("int8", {}), ("w8a8", {
+            "calibration_images": inp["serve_images"][:4]})):
+        pred = Predictor(TP_PRESET, inp["classnames"], precision="fp32",
+                         batch_size=3, mesh=mesh, quantize=quantize,
+                         device="cpu", **kw)
+        out[quantize] = pred.predict(inp["serve_images"])["probs"]
+        out[quantize + "_one"] = pred.predict(
+            inp["serve_images"][:1])["probs"]
+    return out
+
+
+def case_mesh_predictor(inp, shape):
+    """``parallel/http_mesh.py`` without HTTP: rank 0's ``MeshPredictor``
+    rejects a wrong image size and takes an empty batch without a
+    collective, then sends one batch after a pause filled by no-op
+    headers, then the stop code; the other ranks ``follow``."""
+    import time
+    from clip_calibration_tpu_torch.models import clip as M
+    from clip_calibration_tpu_torch.parallel import http_mesh
+    from clip_calibration_tpu_torch.serving import Predictor
+    M.PRESETS[TP_PRESET] = D.TP_CFG
+    http_mesh.HEARTBEAT_S = 0.2
+    pred = Predictor(TP_PRESET, inp["classnames"], precision="fp32",
+                     batch_size=3, mesh=P.make_mesh(shape), device="cpu")
+    if dist.get_rank() != 0:
+        return {"joined": http_mesh.follow(pred, "cpu")}
+    front = http_mesh.MeshPredictor(pred, "cpu")
+    out = {}
+    try:
+        front.predict(np.zeros((2, 16, 16, 3), np.uint8))
+    except ValueError as e:
+        out["rejected"] = str(e)
+    out["empty"] = front.predict(np.zeros((0, 32, 32, 3), np.uint8))
+    time.sleep(1.0)
+    out["probs"] = front.predict(inp["serve_images"])["probs"]
+    front.stop()
+    try:
+        front.predict(inp["serve_images"])
+    except RuntimeError as e:
+        out["after_stop"] = str(e)
+    return out
+
+
 CASES = {
     "shapes": case_shapes,
     "dryrun": case_dryrun,
@@ -246,6 +348,9 @@ CASES = {
     "proda": lambda inp, s: case_trainer(inp, s, "proda"),
     "tp": case_tp,
     "predictor": case_predictor,
+    "int8_tp": case_int8_tp,
+    "int8_predictor": case_int8_predictor,
+    "mesh_predictor": case_mesh_predictor,
     "products": lambda inp, s: D.product_trainers(
         P.make_mesh(s), "cpu", inp["rank_dir"], batch=inp["batch"]),
 }
