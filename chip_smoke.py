@@ -94,8 +94,10 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    steps; one NCCL ``all_reduce`` on the card. (b) Two ranks sharing the
    card over gloo (this script again, ``--mesh-worker``): a probe of
    gloo's ``all_reduce`` / ``all_gather`` / ``broadcast`` on CUDA tensors,
-   then at ViT-B/16 (bf16, seeded random init) a data-parallel CoOp step
-   at batch 32 on mesh (2, 1) (again at fp32: the fp32 K1 and K2, a tight
+   then at ViT-B/16 (bf16, seeded random init) data-parallel CoOp and
+   ProGrad steps (ProGrad: two backward passes) at batch 32 on mesh (2, 1),
+   the text features' gradient summed over the data ranks before the text
+   tower's backward (CoOp again at fp32: the fp32 K1 and K2, a tight
    tolerance), CoCoOp and ProDA class-sharded steps on
    (1, 2) at their published configs (ProDA's classifier then on the w8a8
    text tower), a tensor-parallel Predictor on (1, 2) (its ``predict``
@@ -1177,8 +1179,17 @@ def run_fanout_path(k1, k2, k3):
 #: pick another algorithm, so a bf16 output may round 1 ulp, 2^-8
 #: relative, apart), through 12 layers each way: loss |diff| / |one rank|
 MESH_LOSS_RTOL = 1e-2
-#: every trainable's gradient: max |diff| / max |one rank|
-MESH_GRAD_RTOL = 5e-2
+#: every trainable's gradient of a data-parallel step (CoOp, ProGrad):
+#: max |diff| / max |one rank|. The text features' fp32 gradient is
+#: summed over the data ranks before the text tower's bf16 backward
+#: (``parallel/mesh.py::reduce_data_grad``, the JAX mesh step's order),
+#: which leaves the cuBLAS row-count roundings of the image features
+MESH_GRAD_RTOL = 1e-2
+#: the class-sharded steps (CoCoOp, ProDA on (1, 2)): each model rank's
+#: bf16 text backward sums its classes' part of the context gradient
+#: before the fp32 sum over the ranks (measured on an H100: 2.4e-3 to
+#: 1.03e-2)
+MESH_CLASS_GRAD_RTOL = 5e-2
 #: the same DP CoOp step at fp32 (the golden-parity precision, TF32 off):
 #: the sums alone differ in order, so loss and gradient hold tightly
 MESH_FP32_LOSS_RTOL = 1e-5
@@ -1354,14 +1365,19 @@ def mesh_worker(rank: int, port: int, out_path: str,
     coop = "CoOp/vit_b16_c16_ep200_batch32.yaml"
     fp32 = {"loss_rtol": MESH_FP32_LOSS_RTOL,
             "grad_rtol": MESH_FP32_GRAD_RTOL}
+    sharded = {"grad_rtol": MESH_CLASS_GRAD_RTOL}
     checks = [
         ("CoOp", "CoOp", coop, 16, (2, 1), [], {}),
+        # two backward passes through the text tower, each summed over
+        # the data ranks at the text features
+        ("ProGrad", "ProGrad", "ProGrad/vit_b16_c16_ep100_batch32.yaml",
+         16, (2, 1), [], {}),
         ("CoOp_fp32", "CoOp", coop, 16, (2, 1),
          ["MODEL.PRECISION", "fp32", "TRAINER.COOP.PREC", "fp32"], fp32),
         ("CoCoOp", "CoCoOp", "CoCoOp/vit_b16_c4_ep10_batch1.yaml", 1,
-         (1, 2), [], {}),
+         (1, 2), [], sharded),
         ("ProDA", "ProDA", "ProDA/vit_b16_c16_ep100_batch4.yaml", 1, (1, 2),
-         ["TRAINER.QUANT_EVAL_TEXT", "w8a8"], {}),
+         ["TRAINER.QUANT_EVAL_TEXT", "w8a8"], sharded),
     ]
     try:
         for name, trainer, config, shots, shape, opts, tol in checks:
@@ -1548,8 +1564,8 @@ def run_mesh_path(k1, k2, k3):
     """(a) The port's CLI with ``TPU.DISTRIBUTED True`` at one rank, NCCL
     on the card: golden stage 1 (its ``=> result`` block must equal
     main_path's) and 3 CoOp steps. (b) Two ranks sharing the card over
-    gloo (``mesh_worker``): a DP CoOp step at batch 32 on mesh (2, 1),
-    CoCoOp and ProDA class-sharded steps on (1, 2) at their published
+    gloo (``mesh_worker``): DP CoOp and ProGrad steps at batch 32 on mesh
+    (2, 1), CoCoOp and ProDA class-sharded steps on (1, 2) at their published
     configs (ProDA's classifier on the w8a8 text tower), the full, int8
     and w8a8 TP Predictors on (1, 2), each held to one rank. (c) HTTP
     over the two ranks (``run_mesh_http``). A failure in either rank
@@ -1691,11 +1707,13 @@ def run_mesh_path(k1, k2, k3):
              gloo_cuda_collectives=res["gloo_cuda_collectives"],
              tolerances={"loss_rtol": MESH_LOSS_RTOL,
                          "grad_rtol": MESH_GRAD_RTOL,
+                         "class_grad_rtol": MESH_CLASS_GRAD_RTOL,
                          "fp32_loss_rtol": MESH_FP32_LOSS_RTOL,
                          "fp32_grad_rtol": MESH_FP32_GRAD_RTOL,
                          "cos_tol": MESH_COS_TOL,
                          "probs_atol": MESH_PROBS_ATOL},
-             **{k: res[k] for k in ("CoOp", "CoOp_fp32", "CoCoOp", "ProDA",
+             **{k: res[k] for k in ("CoOp", "ProGrad", "CoOp_fp32",
+                                    "CoCoOp", "ProDA",
                                     "tp_predictor", "tp_predictor_int8",
                                     "tp_predictor_w8a8", "seconds",
                                     "counters")},
@@ -2846,6 +2864,7 @@ def check_int8_attention(device, probe_launches):
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "ops": 2 * product_ops,
+                "bytes_ms": t_bytes, "ops_ms": t_ops,
             }
             emit("kernel int8_attention", **rec)
             if not ok:

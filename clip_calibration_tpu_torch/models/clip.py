@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -576,8 +576,14 @@ def normalize(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
 
 def cosine_logits(image_features: torch.Tensor,
                   text_features: torch.Tensor,
-                  logit_scale: torch.Tensor) -> torch.Tensor:
-    """scale * normalize(img) @ normalize(txt).T in fp32."""
+                  logit_scale: torch.Tensor,
+                  text_hook: Optional[Callable] = None) -> torch.Tensor:
+    """scale * normalize(img) @ normalize(txt).T in fp32. ``text_hook``
+    takes the fp32 normalized text features before the product (a
+    trainer's ``replicated_text``: on a data mesh, the sum of their
+    gradient over the data ranks)."""
     img = normalize(image_features).float()
     txt = normalize(text_features).float()
+    if text_hook is not None:
+        txt = text_hook(txt)
     return torch.exp(logit_scale.float()) * (img @ txt.T)

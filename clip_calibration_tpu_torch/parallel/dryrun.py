@@ -30,7 +30,8 @@ from ..models import clip as M
 from ..ops.preprocess import normalize_images
 from ..tools.device import resolve_device
 from .mesh import (Mesh, class_slice, data_mean, gather_classes,
-                   gather_data, local_rows, make_mesh, reduce_grads, world)
+                   gather_data, local_rows, make_mesh, reduce_data_grad,
+                   reduce_grads, world)
 from .tp import tower_tp
 
 #: the TP check's tower: 2 vision heads (width 128) and 4 text heads, so
@@ -89,7 +90,8 @@ def coop_loss(ctx, model, cfg, embedding, eot_pos, images, labels,
         img_f = M.encode_image(model, cfg,
                                normalize_images(local_rows(images, mesh),
                                                 dtype=dtype), dtype=dtype)
-    logits = M.cosine_logits(img_f, txt_f, model.logit_scale)
+    logits = M.cosine_logits(img_f, txt_f, model.logit_scale,
+                             text_hook=lambda t: reduce_data_grad(t, mesh))
     return F.cross_entropy(logits, local_rows(labels, mesh).long())
 
 
@@ -161,29 +163,43 @@ def trainer_step_check(trainer, images: np.ndarray, labels: np.ndarray,
     """One train loss of a built trainer on a global batch, on its mesh
     (this rank's rows; gradients reduced over the mesh) and on one rank
     (the whole batch): returns {"loss": (mesh, one rank), "grads":
-    {leaf: (mesh, one rank)}} as host arrays. Leaves the trainables
+    {leaf: (mesh, one rank)}} as host arrays. ProGrad's step takes two
+    gradients (``loss_grads``: CE and KL, two backward passes) and
+    projects them: its loss is the CE, its leaves the projected gradient
+    beside ``ce/<leaf>`` and ``kl/<leaf>``. Leaves the trainables
     unchanged."""
     from ..engine.checkpoint import flatten_params
-    flat = flatten_params(trainer.model_params(trainer.get_model_names()[0]))
+    from ..engine.optim import sorted_leaves
+    from ..trainers.prograd import ProGrad, prograd_project
+    params = trainer.model_params(trainer.get_model_names()[0])
+    flat = flatten_params(params)
     keys, leaves = list(flat), list(flat.values())
     lab = torch.as_tensor(labels).to(trainer.device)
-
-    def grads(loss):
-        return [g.detach() for g in torch.autograd.grad(loss, leaves)]
-
     mesh = trainer.mesh
-    loss = trainer._loss(local_rows(images, mesh),
-                         local_rows(lab, mesh), *loss_args)
-    g_mesh = reduce_grads(grads(loss), mesh,
-                          model_sharded=trainer.class_sharded)
+
+    def step(images, labels):
+        """(loss, {key: gradient}) as the trainer's step reduces them."""
+        if isinstance(trainer, ProGrad):
+            name = {id(t): k for k, t in flat.items()}
+            order = [name[id(t)] for t in sorted_leaves(params)]
+            xe, g_ce, g_kl = trainer.loss_grads(images, labels)
+            proj = prograd_project(g_ce, g_kl, trainer.lambda_)
+            return xe, {**dict(zip(order, proj)),
+                        **{f"ce/{k}": g for k, g in zip(order, g_ce)},
+                        **{f"kl/{k}": g for k, g in zip(order, g_kl)}}
+        loss = trainer._loss(images, labels, *loss_args)
+        return loss, dict(zip(keys, reduce_grads(
+            torch.autograd.grad(loss, leaves), trainer.mesh,
+            model_sharded=trainer.class_sharded)))
+
+    loss, g_mesh = step(local_rows(images, mesh), local_rows(lab, mesh))
     loss_mesh = data_mean(loss.detach(), mesh)
     with one_rank(trainer):
-        loss1 = trainer._loss(images, lab, *loss_args)
-        g_one = grads(loss1)
-    host = lambda t: t.float().cpu().numpy()  # noqa: E731
+        loss1, g_one = step(images, lab)
+    host = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
     return {"loss": (float(loss_mesh), float(loss1.detach())),
-            "grads": {k: (host(a), host(b))
-                      for k, a, b in zip(keys, g_mesh, g_one)}}
+            "grads": {k: (host(g_mesh[k]), host(g_one[k]))
+                      for k in g_mesh}}
 
 
 def _product_cfg(mesh_shape, trainer_name: str, root: str, out_dir: str,

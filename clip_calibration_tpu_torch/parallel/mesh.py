@@ -19,8 +19,9 @@ and ``broadcast`` run over them: gloo has these for CPU and CUDA tensors
 alike, so one code path runs under NCCL on cards and under gloo on the
 CPU. No autograd collective whose backward is a reduce-scatter or an
 all-to-all is used (gloo has neither for CUDA tensors): ``gather_classes``
-sends nothing in its backward, and the trainables' gradients are reduced
-explicitly (``reduce_trainable_grads``).
+sends nothing in its backward, ``reduce_data_grad`` runs an
+``all_reduce`` in its backward, and the trainables' gradients are
+reduced explicitly (``reduce_trainable_grads``).
 """
 
 from __future__ import annotations
@@ -302,6 +303,39 @@ def count_once(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return _CountOnce.apply(x, mesh)
 
 
+class _ReduceDataGrad(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # each rank's loss is the mean over its own rows: the sum over the
+        # data group divided by its size is the global batch's gradient
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mesh.data_group)
+        return g / ctx.mesh.dims[0], None
+
+
+def reduce_data_grad(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Marks a value that every data rank computes alike (the class text
+    features) where it meets this rank's rows of the batch: the forward
+    is the identity; the backward sums its gradient over the data group
+    and divides by the data axis, so what lies behind it (the text
+    tower) runs its backward on the global batch's gradient, the same on
+    every data rank. This is the JAX mesh step's order: GSPMD sums the
+    replicated operand's gradient over the data axis at the product with
+    the sharded one, then runs the tower's backward once. Apply it after
+    the fp32 cast, so the sum runs in fp32 and the bf16 backward rounds
+    the global gradient as one rank's does. Identity without a data axis
+    or on a value that takes no gradient."""
+    if mesh is None or mesh.data_group is None or not x.requires_grad:
+        return x
+    return _ReduceDataGrad.apply(x, mesh)
+
+
 def reduce_grads(grads, mesh: Optional[Mesh],
                  model_sharded: bool = False):
     """The global loss's gradients from each rank's ``grads`` (a sequence
@@ -312,7 +346,14 @@ def reduce_grads(grads, mesh: Optional[Mesh],
     each holds a partial gradient: sum them over the model group. Then
     average over the data group (each rank's loss is its rows' mean).
     Without a class-sharded step the model ranks hold equal gradients
-    and only the data average runs. One collective per dtype and axis."""
+    and only the data average runs. One collective per dtype and axis.
+
+    A step whose text side went through ``reduce_data_grad`` holds that
+    side's part already equal on every data rank: the data average
+    leaves it as it is (to fp32 rounding), and adds each rank's own part
+    of an image side (MaPLe's and PromptSRC's vision prompts, MaPLe's
+    projection of its context) into the global gradient, since the mean
+    of G + v_r over the ranks is G + mean(v_r)."""
     grads = list(grads)
     if mesh is None or mesh.size == 1:
         return grads

@@ -160,6 +160,15 @@ class VLBaseLearner(TrainerX):
         self.optimizer_step(name)
         return {"loss": P.data_mean(loss.detach(), self.mesh)}
 
+    def replicated_text(self, text_features: torch.Tensor) -> torch.Tensor:
+        """Text features that every data rank computes alike, where they
+        meet this rank's rows (after their fp32 cast): on a mesh their
+        gradient becomes the global batch's before the text tower's
+        backward (``parallel/mesh.py::reduce_data_grad``), as the JAX
+        mesh step takes it. Identity on one rank (and under
+        ``parallel/dryrun.py::one_rank``)."""
+        return P.reduce_data_grad(text_features, self.mesh)
+
     # -- quantized frozen vision tower (TRAINER.QUANT_FROZEN_VISION) -------
     #: True on trainers whose image tower takes TRAINABLE prompt inputs
     #: (VPT, MaPLe, PromptSRC): the tower is on the gradient path there

@@ -287,7 +287,8 @@ class CoOp(VLBaseLearner):
                                     ["ctx"])
         with torch.no_grad():
             img_f = self._image_features(images)
-        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale)
+        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale,
+                                 text_hook=self.replicated_text)
         return F.cross_entropy(logits, labels.long())
 
     def forward_backward(self, batch):

@@ -44,8 +44,11 @@ class KgCoOp(CoOp):
                                     ["ctx"])
         with torch.no_grad():
             img_f = self._image_features(images)
-        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale)
+        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale,
+                                 text_hook=self.replicated_text)
         ce = F.cross_entropy(logits, labels.long())
+        # the text-to-text term depends on no image: its gradient is the
+        # same on every data rank, the global batch's already
         txt_n = M.normalize(txt_f).float()
         score = 1.0 - (txt_n * self._zs_text).sum(dim=-1).mean()
         return ce + self.w * score

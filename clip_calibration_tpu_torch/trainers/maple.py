@@ -125,7 +125,11 @@ class MaPLe(VLBaseLearner):
 
     def _loss(self, images, labels):
         img_f, txt_f = self._features(images)
-        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale)
+        # the text side's gradient is summed over the data ranks at the
+        # product; the vision side's stays this rank's (its prompts are
+        # averaged with the other trainables' gradients)
+        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale,
+                                 text_hook=self.replicated_text)
         return F.cross_entropy(logits, labels.long())
 
     def forward_backward(self, batch):

@@ -218,7 +218,9 @@ class ProDA(VLBaseLearner):
         tf, nc_f = self._text_features_all(ctx_b, pos_b, model,
                                            extra_rows=nc,
                                            extra_eots=nc_eots)
-        tf = tf.float()                        # [n_cls, P, E]
+        # all classes on every data rank: the gradient is summed over the
+        # data ranks here, before the gather's and the tower's backward
+        tf = self.replicated_text(tf.float())  # [n_cls, P, E]
         # every model rank encodes the class-free rows: count them once
         nc_f = count_once(nc_f, self.mesh).float()
         text_mean = tf.mean(dim=1)             # [n_cls, E]

@@ -99,23 +99,32 @@ class ProGrad(CoOp):
         with torch.no_grad():
             img_f = self._image_features(images)
         img_n = M.normalize(img_f).float()
-        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale)
+        logits = M.cosine_logits(img_f, txt_f, self.clip_model.logit_scale,
+                                 text_hook=self.replicated_text)
         scale = torch.exp(self.clip_model.logit_scale.float())
         return prograd_losses(logits, scale * (img_n @ self._zs_text.T),
                               labels, self.T)
+
+    def loss_grads(self, images, labels):
+        """(CE, CE's gradients, KL's gradients) of one batch, each over
+        the trainables in ``sorted_leaves`` order: two backward passes
+        through the text tower, each on the global batch's gradient of
+        the text features (``replicated_text``). On a mesh both become
+        the global batch's before the (nonlinear) projection, as the JAX
+        step takes them."""
+        params = sorted_leaves(self.model_params("prompt_learner"))
+        xe, kl = self._losses(images, labels)
+        g_ce = torch.autograd.grad(xe, params, retain_graph=True)
+        g_kl = torch.autograd.grad(kl, params)
+        return (xe, reduce_grads(g_ce, self.mesh),
+                reduce_grads(g_kl, self.mesh))
 
     def forward_backward(self, batch):
         name = "prompt_learner"
         images, labels = self.parse_batch_train(batch)
         self.optimizer(name).zero_grad(set_to_none=True)
-        xe, kl = self._losses(images, self.put_batch(labels))
+        xe, g_ce, g_kl = self.loss_grads(images, self.put_batch(labels))
         params = sorted_leaves(self.model_params(name))
-        g_ce = torch.autograd.grad(xe, params, retain_graph=True)
-        g_kl = torch.autograd.grad(kl, params)
-        # on a mesh both gradients become the global batch's before the
-        # (nonlinear) projection, as the JAX step takes them
-        g_ce = reduce_grads(g_ce, self.mesh)
-        g_kl = reduce_grads(g_kl, self.mesh)
         for p, g in zip(params, prograd_project(g_ce, g_kl, self.lambda_)):
             p.grad = g
         self.optimizer_step(name)

@@ -145,7 +145,10 @@ class PromptSRC(VLBaseLearner):
         x = self._images(images)
         img_f, txt_f = self._features(x)
         img_n = M.normalize(img_f).float()
-        txt_n = M.normalize(txt_f).float()
+        # one text value feeds the logits and the text-to-text term; the
+        # latter's gradient, equal on every data rank, passes the data
+        # average unchanged
+        txt_n = self.replicated_text(M.normalize(txt_f).float())
         scale = torch.exp(self.clip_model.logit_scale.float())
         logits = scale * (img_n @ txt_n.T)
         ce = F.cross_entropy(logits, labels.long())

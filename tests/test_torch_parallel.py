@@ -7,9 +7,16 @@ processes (``tests/torch_parallel_driver.py``): one group of 2 ranks and
 one of 4, each running several cases in turn. The same inputs (seeded
 numpy arrays, one weight file) go through the mesh, through the port on
 one rank (this process, no process group) and through the JAX package.
-fp32 throughout: the sharded sums run in another order, bounded at rel
-2e-5 as tests/test_parallel.py bounds them; against JAX the port's own
+fp32: the sharded sums run in another order, bounded at rel 2e-5 as
+tests/test_parallel.py bounds them; against JAX the port's own
 tolerances (tests/test_torch_training.py).
+
+bf16 (the configs' precision; the ``step:`` cases at the end): the
+prompt trainers' data-parallel steps, each rank's loss and gradients
+held to one rank's and to the JAX package's on a mesh of its virtual
+CPU devices. The JAX mesh step sums the text features' fp32 gradient
+over the data axis before the bf16 text tower's backward; the port does
+it in the same place (``parallel/mesh.py::reduce_data_grad``).
 """
 
 import os
@@ -29,12 +36,109 @@ import jax.numpy as jnp  # noqa: E402
 
 from test_torch_fanout_trainers import (PRODA_IDX, TRAINERS,  # noqa: E402
                                         _batch, _jax_loss_fn, build_pair)
+from test_torch_prompt_trainers import (  # noqa: E402
+    TRAINERS as PROMPT_TRAINERS)
 from test_torch_training import ATOL, RTOL, _opts  # noqa: E402
 from torch_parallel_driver import port_trainer, run_ranks  # noqa: E402
 
 # mesh vs one rank, fp32 (tests/test_parallel.py's bound)
 MESH_RTOL = MESH_ATOL = 2e-5
 TP_PRESET = "ViT-TP-Test"
+
+#: the bf16 trainers (MODEL.PRECISION bf16, PREC fp16 as the published
+#: configs): key -> (trainer, its overrides beside ``_opts``'), at the
+#: fp32 tests' sizes
+BF16 = {
+    "bf16_coop": ("CoOp", {}),
+    "bf16_prograd": ("ProGrad", TRAINERS["ProGrad"]),
+    "bf16_kgcoop": ("KgCoOp", PROMPT_TRAINERS["KgCoOp"][1]),
+    "bf16_promptsrc": ("PromptSRC", PROMPT_TRAINERS["PromptSRC"][1]),
+    "bf16_maple": ("MaPLe", PROMPT_TRAINERS["MaPLe"][1]),
+    "bf16_proda": ("ProDA", TRAINERS["ProDA"]),
+    "bf16_vpt": ("VPT", PROMPT_TRAINERS["VPT"][1]),
+    "bf16_clip_adapter": ("CLIP_Adapter", {}),
+    "bf16_taskres": ("TaskRes", PROMPT_TRAINERS["TaskRes"][1]),
+}
+#: (rank group, driver case): the data-parallel steps on (2, 1), CoOp
+#: also on (4, 1), ProDA on (2, 2) (data x class-sharded)
+BF16_CASES = [
+    ("two", "step:bf16_coop@2,1"), ("four", "step:bf16_coop@4,1"),
+    ("two", "step:bf16_prograd@2,1"), ("two", "step:bf16_kgcoop@2,1"),
+    ("two", "step:bf16_promptsrc@2,1"), ("two", "step:bf16_maple@2,1"),
+    ("four", "step:bf16_proda@2,2"), ("two", "step:bf16_vpt@2,1"),
+    ("two", "step:bf16_clip_adapter@2,1"),
+    ("two", "step:bf16_taskres@2,1")]
+#: the bf16 mesh step against one rank: loss |diff| / |one rank|, and
+#: every gradient's max |diff| / max |one rank|. With the text features'
+#: gradient summed over the data ranks before the text tower's backward
+#: the text side's leaves come out equal (0.0 on this batch); each rank
+#: backpropagating its own part instead puts them 8.3e-3 (KgCoOp) to
+#: 6.2e-2 (ProGrad's projection) apart
+BF16_MESH_LOSS_RTOL = 1e-5
+BF16_MESH_GRAD_RTOL = 1e-3
+#: the recorded gaps between a bf16 mesh step and one device's that are
+#: larger than the fp32 summation order's, by (key, leaf): (the JAX
+#: package's, the port's), max |diff| / max |one device|. The leaves an
+#: image side reaches: each device runs the vision tower's bf16 backward
+#: on its own rows, in both packages (the port's gap is the smaller on
+#: each). ProDA's (2, 2): its model axis sums partial gradients of bf16
+#: towers, in both. CLIP-Adapter's head: the port rounds each rank's
+#: weight gradient to bf16 before the fp32 average, the JAX package on
+#: the CPU does not (a recorded deviation, ROADMAP.md §3)
+MESH_GAP = {
+    ("bf16_promptsrc", "vpt_shallow"): (4.26e-3, 2.16e-3),
+    ("bf16_promptsrc", "deep_vis"): (4.63e-3, 2.30e-3),
+    ("bf16_maple", "ctx"): (1.16e-4, 5.73e-5),
+    ("bf16_maple", "compound_text"): (6.96e-5, 3.45e-5),
+    ("bf16_maple", "proj_w"): (4.74e-3, 2.09e-3),
+    ("bf16_maple", "proj_b"): (4.89e-3, 1.84e-3),
+    ("bf16_maple", "compound_proj_w"): (4.27e-3, 1.74e-3),
+    ("bf16_maple", "compound_proj_b"): (4.27e-3, 1.06e-3),
+    ("bf16_proda", "ctx"): (3.15e-3, 3.13e-3),
+    ("bf16_vpt", "shallow"): (5.59e-3, 4.17e-3),
+    ("bf16_vpt", "deep"): (5.46e-3, 2.72e-3),
+    ("bf16_clip_adapter", "w1"): (0.0, 2.99e-3),
+    ("bf16_clip_adapter", "w2"): (0.0, 3.95e-3),
+}
+#: the fp32 summation order's gap (every other leaf)
+JAX_SUM_ORDER_RTOL = 1e-6
+#: the port's bf16 step against the JAX package's, on one device and on
+#: a mesh: both round the towers in bf16 at their own points (the
+#: features 1-2 bf16 ulps apart), which the loss's cancellations
+#: magnify. Measured here: loss 8.1e-3 (CoOp), gradients 8.6e-3
+#: (CLIP-Adapter's w1) to 6.7e-2 (ProGrad's projection) and 1.31e-1
+#: (CLIP-Adapter's w2)
+BF16_JAX_LOSS_RTOL = 2e-2
+BF16_JAX_GRAD_RTOL = 0.15
+
+
+def _bf16_opts(overrides):
+    """``_opts`` at bf16: the trainer's PREC fp16 (CoOp's and
+    CLIP-Adapter's read TRAINER.COOP.PREC), MODEL.PRECISION bf16."""
+    return _opts(**{k: ("fp16" if k.endswith(".PREC") else v)
+                    for k, v in overrides.items()},
+                 **{"MODEL.PRECISION": "bf16", "TRAINER.COOP.PREC": "fp16"})
+
+
+def _slot(name):
+    return (PROMPT_TRAINERS[name][0] if name in PROMPT_TRAINERS
+            else "prompt_learner")
+
+
+def _jax_trainer(root, name, overrides, weights):
+    """The JAX trainer alone, as ``build_pair`` builds it."""
+    from helpers import build_synthetic_trainer
+    old = os.environ.get("CLIP_CHECKPOINT_DIR")
+    os.environ["CLIP_CHECKPOINT_DIR"] = weights
+    try:
+        return build_synthetic_trainer(name, root / "data", seed=1,
+                                       output_dir=root / "jax", num_shots=1,
+                                       overrides=overrides)
+    finally:
+        if old is None:
+            os.environ.pop("CLIP_CHECKPOINT_DIR")
+        else:
+            os.environ["CLIP_CHECKPOINT_DIR"] = old
 
 
 def _tp_params():
@@ -116,14 +220,28 @@ def fx(tmp_path_factory):
         if name == "ProDA":
             spec["prompt_idx"] = PRODA_IDX
         inputs["trainers"][key] = spec
+    f.bf16 = {}
+    for key, (name, overrides) in BF16.items():
+        f.bf16[key] = _jax_trainer(root, name, _bf16_opts(overrides),
+                                   f.weights)
+        inputs["trainers"][key] = {
+            "trainer": name, "overrides": _bf16_opts(overrides),
+            "images": f.images, "labels": f.labels,
+            "trainables": {k: np.asarray(v) for k, v in jflat(
+                f.bf16[key].model_params(_slot(name))).items()},
+            **({"prompt_idx": PRODA_IDX} if name == "ProDA" else {})}
     f.inputs = inputs
+    steps = {group: [c for g, c in BF16_CASES if g == group]
+             for group in ("two", "four")}
     f.two = run_ranks(str(root / "two"), 2, inputs,
                       ["coop_loss@1,2", "cocoop@1,2", "proda@1,2",
-                       "tp@1,2", "predictor@1,2"], f.weights)
+                       "tp@1,2", "predictor@1,2", *steps["two"]],
+                      f.weights)
     f.four = run_ranks(str(root / "four"), 4, inputs,
                        ["shapes@2,2", "coop_loss@2,2", "dp_coop@4,1",
                         "cocoop@2,2", "proda@2,2", "tp@2,2",
-                        "predictor@2,2", "dryrun"], f.weights)
+                        "predictor@2,2", "dryrun", *steps["four"]],
+                       f.weights)
     return f
 
 
@@ -500,3 +618,152 @@ def test_serving_predictor_on_a_mesh(fx, group, case, monkeypatch):
                      spec["overrides"], None)
     want = TrainerPredictor(t, batch_size=3).predict(fx.trainer_images)
     _close(r["trainer_probs"], want["probs"])
+
+
+# ------------------------------------------------ bf16 data-parallel steps
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _jax_step(jt, name, images, labels, mesh=None):
+    """The JAX trainer's (loss, {leaf: gradient}) on the fixture's batch,
+    jitted as its step is: on one device, or on ``mesh`` with the batch
+    over its data axis and everything else replicated (ProDA's classes
+    over its model axis: ``_build_steps`` reads the trainer's mesh).
+    ProGrad: the CE, and its CE and KL gradients (``ce/``, ``kl/``)
+    beside their projection."""
+    from clip_calibration_tpu.models.weights import flatten_params
+    from clip_calibration_tpu.trainers.prograd import prograd_project
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    if name == "ProDA" and mesh is not None:
+        jt._mesh = mesh
+        jt._build_steps()
+    slot = _slot(name)
+    args = [jt.model_params(slot), jt.step_clip_params]
+    data = [False, False]
+    if name == "ProGrad":
+        def fn(tr, frozen, x, y):
+            (xe, _), vjp = jax.vjp(lambda t: jt._losses(t, frozen, x, y),
+                                   tr)
+            g_ce, = vjp((jnp.ones(()), jnp.zeros(())))
+            g_kl, = vjp((jnp.zeros(()), jnp.ones(())))
+            return xe, {"proj": prograd_project(g_ce, g_kl, jt.lambda_),
+                        "ce": g_ce, "kl": g_kl}
+    else:
+        fn = jax.value_and_grad(_jax_loss_fn(jt))
+        if PROMPT_TRAINERS.get(name, (0, 0, False))[2]:
+            args.append(jt.text_features)
+            data.append(False)
+    args += [jnp.asarray(images), jnp.asarray(labels)]
+    data += [True, True]
+    if name == "ProDA":
+        args.append(jnp.asarray(PRODA_IDX))
+        data.append(False)
+    if mesh is None:
+        loss, grads = jax.jit(fn)(*args)
+    else:
+        sh = [NamedSharding(mesh, P("data") if d else P()) for d in data]
+        with mesh:
+            loss, grads = jax.jit(fn, in_shardings=tuple(sh),
+                                  out_shardings=NamedSharding(mesh, P()))(
+                *[jax.device_put(a, s) for a, s in zip(args, sh)])
+    flat = {k: np.asarray(v, np.float32)
+            for k, v in flatten_params(grads).items()}
+    if name == "ProGrad":
+        flat = {(k[len("proj/"):] if k.startswith("proj/") else k): v
+                for k, v in flat.items()}
+    return float(loss), flat
+
+
+@pytest.fixture(scope="module")
+def bf16_jax(fx):
+    """key -> {"one": (loss, grads), "d,m": (loss, grads)}: each bf16 JAX
+    trainer on one device and on the mesh of each of its cases (the
+    first d x m virtual CPU devices)."""
+    from clip_calibration_tpu.parallel.mesh import make_mesh
+    out = {}
+    for key, (name, _) in BF16.items():
+        jt = fx.bf16[key]
+        out[key] = {"one": _jax_step(jt, name, fx.images, fx.labels)}
+        for _, case in BF16_CASES:
+            k, shape = case[len("step:"):].split("@")
+            if k == key:
+                d, m = (int(x) for x in shape.split(","))
+                out[key][shape] = _jax_step(
+                    jt, name, fx.images, fx.labels,
+                    make_mesh((d, m), devices=jax.devices()[:d * m]))
+    return out
+
+
+def _bf16_case(fx, group, case):
+    key, shape = case[len("step:"):].split("@")
+    return key, shape, _same_on_every_rank(getattr(fx, group), case)
+
+
+@pytest.mark.parametrize("group,case", BF16_CASES)
+def test_bf16_mesh_step_matches_one_rank(fx, group, case):
+    """(a) The bf16 step on the mesh against the same step on one rank
+    (every rank recomputes it without its mesh): the loss, and every
+    trainable's gradient within ``BF16_MESH_GRAD_RTOL`` of its max; a
+    leaf of ``MESH_GAP`` within twice the larger of its two recorded
+    gaps (the JAX package's, where an image side reaches it)."""
+    key, shape, r = _bf16_case(fx, group, case)
+    lm, l1 = r["loss"]
+    np.testing.assert_allclose(lm, l1, rtol=BF16_MESH_LOSS_RTOL)
+    for k, (g_mesh, g_one) in r["grads"].items():
+        assert np.abs(g_one).max() > 1e-5, k  # every trainable is reached
+        bound = max(BF16_MESH_GRAD_RTOL, 2 * max(MESH_GAP.get((key, k),
+                                                              (0, 0))))
+        assert _rel(g_mesh, g_one) <= bound, (k, _rel(g_mesh, g_one), bound)
+
+
+@pytest.mark.parametrize("group,case", BF16_CASES)
+def test_bf16_mesh_step_matches_jax_mesh(fx, bf16_jax, group, case):
+    """(b) The port's bf16 mesh step against the JAX trainer's on a mesh
+    of the same shape: the loss and every gradient within the bf16
+    tolerances the one-device comparison holds
+    (``test_bf16_one_rank_matches_jax``)."""
+    key, shape, r = _bf16_case(fx, group, case)
+    loss, grads = bf16_jax[key][shape]
+    np.testing.assert_allclose(r["loss"][0], loss, rtol=BF16_JAX_LOSS_RTOL)
+    assert sorted(r["grads"]) == sorted(grads)
+    for k, (g_mesh, _) in r["grads"].items():
+        assert _rel(g_mesh, grads[k]) <= BF16_JAX_GRAD_RTOL, (
+            k, _rel(g_mesh, grads[k]))
+
+
+@pytest.mark.parametrize("key", list(BF16))
+def test_bf16_one_rank_matches_jax(fx, bf16_jax, key):
+    """The port's bf16 step on one rank (each rank's own recomputation,
+    of the first case of ``key``) against the JAX trainer's on one
+    device."""
+    group, case = next((g, c) for g, c in BF16_CASES
+                       if c.startswith(f"step:{key}@"))
+    _, _, r = _bf16_case(fx, group, case)
+    loss, grads = bf16_jax[key]["one"]
+    np.testing.assert_allclose(r["loss"][1], loss, rtol=BF16_JAX_LOSS_RTOL)
+    for k, (_, g_one) in r["grads"].items():
+        assert _rel(g_one, grads[k]) <= BF16_JAX_GRAD_RTOL, (
+            k, _rel(g_one, grads[k]))
+
+
+@pytest.mark.parametrize("group,case", BF16_CASES)
+def test_jax_bf16_mesh_step_equals_one_device(bf16_jax, group, case):
+    """The reference property: the JAX mesh step's loss and gradients are
+    its one-device step's, to fp32 summation order, on every leaf its
+    text side alone reaches; on the leaves an image side reaches (and
+    ProDA's, whose model axis sums bf16 partial gradients) the gap is
+    the one recorded in ``MESH_GAP``, within a factor of 2."""
+    key, shape = case[len("step:"):].split("@")
+    l1, g1 = bf16_jax[key]["one"]
+    lm, gm = bf16_jax[key][shape]
+    np.testing.assert_allclose(lm, l1, rtol=BF16_MESH_LOSS_RTOL)
+    for k in g1:
+        gap, want = _rel(gm[k], g1[k]), MESH_GAP.get((key, k), (0,))[0]
+        if want == 0:
+            assert gap <= JAX_SUM_ORDER_RTOL, (k, gap)
+        else:
+            assert want / 2 <= gap <= 2 * want, (k, gap, want)

@@ -2,14 +2,15 @@
 tests/test_torch_multihost.py (not a test file), and ``launch``, which
 starts it on a gloo process group of CPU processes.
 
-    python tests/torch_parallel_driver.py OUT_DIR INPUTS.pkl CASE[@d,m] ...
+    python tests/torch_parallel_driver.py OUT_DIR INPUTS.pkl CASE ...
 
-Every rank of a gloo process group on the CPU runs it with the
-``CC_COORD_ADDR`` / ``CC_NUM_PROCS`` / ``CC_PROC_ID`` variables (without
-them it runs as one process, no process group). It runs the named cases
-in order, each on a mesh of the given shape, on the inputs the test wrote
-(numpy arrays), and writes its results to ``OUT_DIR/rank{R}.pkl``. It
-imports nothing of JAX: the test holds the results to the JAX package.
+(each CASE ``NAME[:KEY][@d,m]``). Every rank of a gloo process group on
+the CPU runs it with the ``CC_COORD_ADDR`` / ``CC_NUM_PROCS`` /
+``CC_PROC_ID`` variables (without them it runs as one process, no
+process group). It runs the named cases in order, each on a mesh of the
+given shape, on the inputs the test wrote (numpy arrays), and writes its
+results to ``OUT_DIR/rank{R}.pkl``. It imports nothing of JAX: the test
+holds the results to the JAX package.
 """
 
 import os
@@ -90,7 +91,8 @@ def run_ranks(out_dir, world, inputs, cases, weights, timeout=300):
 
 
 def port_trainer(name, root, out_dir, overrides, mesh_shape, seed=1):
-    """The port's trainer over the Synthetic data on ViT-Test at fp32, as
+    """The port's trainer over the Synthetic data on ViT-Test (fp32 or
+    bf16, as ``overrides`` say), as
     tests/test_torch_training.py::_port_trainer builds it, on a mesh."""
     from clip_calibration_tpu_torch.config import get_cfg_default
     from clip_calibration_tpu_torch.data.base import set_random_seed
@@ -202,6 +204,22 @@ def case_trainer(inp, shape, name):
     out["trainables"] = {k: _host(v) for k, v in
                          flatten_params(t.model_params(slot)).items()}
     return out
+
+
+def case_step(inp, shape, key):
+    """One loss and its gradients on the mesh and on one rank
+    (``trainer_step_check``) of the test's trainer ``key`` on its batch
+    and trainables, nothing else."""
+    from clip_calibration_tpu_torch.engine.checkpoint import unflatten_params
+    spec = inp["trainers"][key]
+    t = port_trainer(spec["trainer"], inp["data_root"],
+                     osp.join(inp["rank_dir"], "out_" + key),
+                     spec["overrides"], shape)
+    t._set_params(t.get_model_names()[0], unflatten_params(
+        {k: np.array(v) for k, v in spec["trainables"].items()}))
+    extra = (spec["prompt_idx"],) if "prompt_idx" in spec else ()
+    return D.trainer_step_check(t, torch.as_tensor(spec["images"]),
+                                spec["labels"], *extra)
 
 
 def case_tp(inp, shape):
@@ -346,6 +364,7 @@ CASES = {
     "dp_coop": lambda inp, s: case_trainer(inp, s, "dp_coop"),
     "cocoop": lambda inp, s: case_trainer(inp, s, "cocoop"),
     "proda": lambda inp, s: case_trainer(inp, s, "proda"),
+    "step": case_step,  # step:KEY, KEY a trainer of the inputs
     "tp": case_tp,
     "predictor": case_predictor,
     "int8_tp": case_int8_tp,
@@ -370,7 +389,9 @@ def main():
     for case in cases:
         name, _, shape = case.partition("@")
         shape = tuple(int(x) for x in shape.split(",")) if shape else ()
-        results[case] = CASES[name](inp, shape)
+        name, _, key = name.partition(":")
+        results[case] = (CASES[name](inp, shape, key) if key
+                         else CASES[name](inp, shape))
     with open(osp.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     if n > 1:
