@@ -42,8 +42,12 @@ from ..engine.optim import (load_opt_state_leaves, opt_state_leaves,
                             set_lr, sorted_leaves)
 from ..engine.registry import build_evaluator
 from ..parallel import mesh as P
+from ..tools import profiling
 from ..tools.device import resolve_device
 from ..tools.profiling import Tracer
+
+#: what ``_device_staged`` reads from an exhausted loader
+_EXHAUSTED = object()
 
 
 class MetricMeter:
@@ -527,9 +531,15 @@ class TrainerX:
 
     def _device_staged(self, loader):
         """One-batch-ahead staging: batch N+1's copy is issued before
-        batch N is consumed, so the copy overlaps the device work."""
+        batch N is consumed, so the copy overlaps the device work. The
+        wait for each batch from the loader is the span ``data.wait``."""
+        batches = iter(loader)
         staged_prev = None
-        for batch in loader:
+        while True:
+            with profiling.span("data.wait"):
+                batch = next(batches, _EXHAUSTED)
+            if batch is _EXHAUSTED:
+                break
             staged = dict(batch)
             staged["img"] = self.put_batch(batch["img"])
             staged["label"] = self.put_batch(batch["label"])

@@ -20,6 +20,7 @@ from collections import OrderedDict
 import numpy as np
 
 from ..engine.registry import EVALUATOR_REGISTRY
+from ..tools import profiling
 from ..tools.metrics import ECE, MCE, AdaptiveECE, PIECE
 from ..tools.plot import plot_reliability_diagram
 
@@ -71,6 +72,7 @@ class VLClassification:
     def labels(self) -> np.ndarray:
         return np.concatenate(self._y_true, axis=0)
 
+    @profiling.span("eval.metrics")
     def evaluate(self, probs, labels, text_proximity):
         results = OrderedDict()
         ece_bin = self.cfg.CALIBRATION.METRICS.ECE_BINS

@@ -42,6 +42,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from .tools import profiling
+
 
 class DynamicBatcher:
     """Coalesce concurrent single-image requests into device batches.
@@ -55,6 +57,11 @@ class DynamicBatcher:
     pays one encode. Exceptions from ``predict_fn`` propagate to every
     Future in the failed batch; per-item results are plain dicts of
     numpy rows.
+
+    The worker records the spans ``batcher.collect`` (from the wait for
+    a batch's first request to the batch's close) and ``batcher.flush``,
+    each request's ``batcher.queue_wait`` (submit to flush) and each
+    batch's ``batcher.rows`` (``tools/profiling.py``).
     """
 
     _SENTINEL = object()
@@ -85,6 +92,7 @@ class DynamicBatcher:
         if self._closed:
             raise RuntimeError("DynamicBatcher is closed")
         fut: Future = Future()
+        fut.queued_ns = time.perf_counter_ns()
         self._q.put((np.asarray(image), fut))
         return fut
 
@@ -110,26 +118,35 @@ class DynamicBatcher:
 
     def _loop(self) -> None:
         while True:
-            item = self._q.get()
-            if item is self._SENTINEL:
-                return
-            items = [item]
-            deadline = time.monotonic() + self._max_wait
-            while len(items) < self._max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self._q.get(timeout=remaining)
-                except Empty:
-                    break
-                if nxt is self._SENTINEL:
-                    self._flush(items)
+            with profiling.span("batcher.collect") as collect:
+                item = self._q.get()
+                if item is self._SENTINEL:
+                    # the wait after the last batch is idle, not work
+                    collect.cancel()
                     return
-                items.append(nxt)
+                items = [item]
+                deadline = time.monotonic() + self._max_wait
+                while len(items) < self._max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = self._q.get(timeout=remaining)
+                    except Empty:
+                        break
+                    if nxt is self._SENTINEL:
+                        collect.cancel()
+                        self._flush(items)
+                        return
+                    items.append(nxt)
             self._flush(items)
 
+    @profiling.span("batcher.flush")
     def _flush(self, items) -> None:
+        for _, fut in items:
+            profiling.observe("batcher.queue_wait",
+                              (time.perf_counter_ns() - fut.queued_ns) * 1e-9)
+        profiling.count("batcher.rows", len(items))
         with self._sizes_lock:
             self._batch_sizes.append(len(items))
         # EVERYTHING routes through the futures — an exception escaping

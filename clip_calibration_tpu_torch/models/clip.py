@@ -32,6 +32,7 @@ from ..ops import attention as _attention
 from ..ops.attention import (causal_mask, layer_norm, multi_head_attention,
                              quick_gelu)
 from ..ops.quant import BLOCK_WEIGHTS, qdot
+from ..tools import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -409,6 +410,7 @@ def _splice_vision(x: torch.Tensor, prompt: torch.Tensor,
                      dim=1)
 
 
+@profiling.span("tower.text")
 def encode_text_embedded(model: CLIP, cfg: CLIPConfig, x: torch.Tensor,
                          eot_pos: torch.Tensor,
                          seq_len: Optional[int] = None,
@@ -495,6 +497,7 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, patch * patch * C)
 
 
+@profiling.span("tower.vision")
 def encode_image(model: CLIP, cfg: CLIPConfig, images: torch.Tensor,
                  dtype=torch.bfloat16, qmode: str = "dequant",
                  collect_act_stats: bool = False, *,

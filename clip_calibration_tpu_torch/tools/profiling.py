@@ -9,20 +9,165 @@ package's ``trace`` writes an XProf directory
 (``TPU.PROFILE_DIR`` traces the first ``TPU.PROFILE_STEPS`` train steps of
 epoch 0) lives in ``engine/trainer.py::run_epoch``.
 
-``StepTimer`` is the JAX package's, unchanged. ``time_ms`` is the port's
-kernel timer on the card (cold inputs, CUDA events).
+The program's own spans and counters: ``span(name)`` (a context manager,
+or a decorator for a whole function), ``observe(name, seconds)`` (a
+duration the caller measured, e.g. across threads), ``count(name, n)``
+and ``snapshot()``. With no profiler running, a span reads
+``perf_counter_ns`` twice and writes its duration into the name's ring
+(the last ``RING`` values, preallocated; a count and a total with no
+cap); it never enters ``record_function``, takes no lock and grows
+nothing. Each name is written by one thread at a time. While a profiler
+runs (``trace``, ``TPU.PROFILE_DIR``, a benchmark's traced slice) a span
+is a ``record_function`` instead: it lands in the Chrome trace nested in
+its parent, on the kernels' clock, and nothing goes into the rings. A
+span open when a profiler starts goes into neither; one open when it
+stops goes into no ring, and the trace holds it cut at the stop (marked
+``"finished": false``). A profiler started and stopped wholly inside one
+span is not seen.
+
+``time_ms`` is the port's kernel timer on the card (cold inputs, CUDA
+events).
 """
 
 from __future__ import annotations
 
+import array
 import contextlib
+import functools
 import os
 import os.path as osp
 import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+#: values kept per name, most recent last
+RING = 1 << 16
+
+
+class _Series:
+    """One name's record: how many values, their sum, and the last
+    ``RING`` of them."""
+
+    __slots__ = ("kind", "count", "total", "ring")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.count = 0
+        self.total = 0.0
+        self.ring = array.array("d", bytes(8 * RING))
+
+    def add(self, value) -> None:
+        self.ring[self.count % RING] = value
+        self.count += 1
+        self.total += value
+
+    def recent(self) -> np.ndarray:
+        ring = np.frombuffer(self.ring, np.float64)
+        if self.count <= RING:
+            return ring[:self.count].copy()
+        at = self.count % RING
+        return np.concatenate([ring[at:], ring[:at]])
+
+
+_SERIES = {}
+
+
+def _series(name: str, kind: str) -> _Series:
+    try:
+        return _SERIES[name]
+    except KeyError:
+        return _SERIES.setdefault(name, _Series(kind))
+
+
+#: stands in on a span's stack for a timing the span's owner cancelled
+_CANCELLED = object()
+
+
+class _Span:
+    """The reusable span of one name (``span(name)``). Its stack holds,
+    per open use, the start in ns, or the ``record_function`` entered
+    when a profiler was running."""
+
+    __slots__ = ("name", "series", "_open")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.series = _series(name, "span")
+        self._open = []
+
+    def __enter__(self) -> "_Span":
+        if _autograd_profiler._is_profiler_enabled:
+            annotation = torch.profiler.record_function(self.name)
+            annotation.__enter__()
+            self._open.append(annotation)
+        else:
+            self._open.append(time.perf_counter_ns())
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t0 = self._open.pop()
+        if type(t0) is int:
+            dt = time.perf_counter_ns() - t0
+            if not _autograd_profiler._is_profiler_enabled:
+                self.series.add(dt * 1e-9)
+        elif t0 is not _CANCELLED:
+            t0.__exit__(None, None, None)
+        return False
+
+    def cancel(self) -> None:
+        """Leave the innermost open use out of the ring (a trace still
+        shows it)."""
+        if type(self._open[-1]) is int:
+            self._open[-1] = _CANCELLED
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with self:
+                return fn(*args, **kwargs)
+        return spanned
+
+
+_SPANS = {}
+
+
+def span(name: str) -> _Span:
+    """The span ``name``: ``with span(name):`` around a block, or
+    ``@span(name)`` on a function."""
+    try:
+        return _SPANS[name]
+    except KeyError:
+        return _SPANS.setdefault(name, _Span(name))
+
+
+def observe(name: str, seconds: float) -> None:
+    """Records a duration measured by the caller (none while a profiler
+    runs)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        _series(name, "observe").add(seconds)
+
+
+def count(name: str, n) -> None:
+    """Adds ``n`` to the count ``name`` (not while a profiler runs)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        _series(name, "count").add(n)
+
+
+def snapshot() -> dict:
+    """Per name: ``count`` (values recorded), ``total_s`` (their sum; a
+    count's is ``total``, in its own units) and ``recent`` (the last
+    ``RING`` values, oldest first)."""
+    out = {}
+    for name, s in list(_SERIES.items()):
+        out[name] = {"count": s.count,
+                     "total" if s.kind == "count" else "total_s": s.total,
+                     "recent": s.recent()}
+    return out
+
 
 # written between timed calls: 5x the H100's 50 MB L2, so every timed call
 # reads its inputs from device memory
@@ -70,35 +215,6 @@ def trace(log_dir: str):
         yield tracer
     finally:
         tracer.stop()
-
-
-class StepTimer:
-    """Aggregates per-step wall times; report() returns summary stats."""
-
-    def __init__(self):
-        self.times = []
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self):
-        if self._t0 is not None:
-            self.times.append(time.perf_counter() - self._t0)
-            self._t0 = None
-
-    def report(self) -> dict:
-        if not self.times:
-            return {}
-        ts = sorted(self.times)
-        n = len(ts)
-        return {
-            "steps": n,
-            "mean_s": sum(ts) / n,
-            "p50_s": ts[n // 2],
-            "p90_s": ts[int(n * 0.9)],
-            "max_s": ts[-1],
-        }
 
 
 def time_ms(fn, flush: torch.Tensor, repeats: int = 25) -> float:

@@ -33,6 +33,7 @@ from ..models import clip as M
 from ..models.backbone import load_clip_backbone
 from ..models.tokenizer import tokenize
 from ..parallel import mesh as P
+from ..tools import profiling
 from .calibration.proximity import (get_knn_dists, get_val_image_knn_dists,
                                     proximity_from_dists)
 from .calibration.vl_calibrator import VLCalibration
@@ -149,6 +150,7 @@ class VLBaseLearner(TrainerX):
                 self.cfg, sorted_leaves(self.model_params(name))),
             build_lr_schedule(self.cfg, len(self.train_loader_x)))
 
+    @profiling.span("train.step")
     def loss_step(self, name: str, batch) -> dict:
         """One train step of ``name``'s tensors on ``self._loss(images,
         labels)``: backward, then the optimizer step. The loss stays on
@@ -156,7 +158,8 @@ class VLBaseLearner(TrainerX):
         images, labels = self.parse_batch_train(batch)
         self.optimizer(name).zero_grad(set_to_none=True)
         loss = self._loss(images, self.put_batch(labels))
-        loss.backward()
+        with profiling.span("train.backward"):
+            loss.backward()
         self.optimizer_step(name)
         return {"loss": P.data_mean(loss.detach(), self.mesh)}
 
@@ -456,6 +459,7 @@ class VLBaseLearner(TrainerX):
             self.write_scalar(f"{split}/{name}", value, self.epoch)
         return list(results.values())[0]
 
+    @profiling.span("calib.score")
     @torch.inference_mode()
     def _calibrated_probs(self, calibrator, logits, image_features_test,
                           text_features_test, test_img_proximity):

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...tools import profiling
 from ...tools.device import resolve_device
 
 
@@ -23,6 +24,7 @@ def _knn_chunk(queries: torch.Tensor, base: torch.Tensor,
     return torch.sqrt(torch.topk(d2, k, dim=1, largest=False).values)
 
 
+@profiling.span("calib.knn")
 @torch.inference_mode()
 def get_knn_dists(val_base_class_features, image_features_cur, k_nns: int,
                   chunk: int = 8192, device="cuda") -> np.ndarray:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 from scipy.special import softmax
 
+from ...tools import profiling
 from .bin_mean_shift import BinMeanShift
 from .binning import (HistogramBinning, IsotonicRegression,
                       MultiIsotonicRegression)
@@ -56,6 +57,7 @@ class VLCalibration:
         self.base_calibrator = None
 
     # -- fit -------------------------------------------------------------------
+    @profiling.span("calib.fit")
     def fit(self):
         if self.dac_flag:
             self.dac_calibrator = self._build_dac()

@@ -472,8 +472,23 @@ def test_batcher_fuzz_concurrency():
 # ---------------- the copy and the w8a8 path ----------------
 
 
+def _is_profiling_call(node):
+    """``profiling.<anything>(...)``."""
+    import ast
+
+    return isinstance(node, ast.Call) and isinstance(
+        node.func, ast.Attribute) and isinstance(
+        node.func.value, ast.Name) and node.func.value.id == "profiling"
+
+
 def _code(path):
-    """The module's AST with every docstring dropped."""
+    """The module's AST with every docstring dropped, and the port's
+    instrumentation taken out: the ``tools.profiling`` import,
+    ``@profiling.span`` decorators, ``with profiling.span(...) [as s]``
+    blocks unwrapped into their bodies (bare calls on ``s`` dropped),
+    bare ``profiling.*(...)`` statements and the loops left empty by
+    their removal, and the submit time stamped on each queued Future
+    (``fut.queued_ns = ...``)."""
     import ast
 
     tree = ast.parse(open(path).read())
@@ -484,6 +499,46 @@ def _code(path):
                 getattr(body[0], "value", None), ast.Constant) and \
                 isinstance(body[0].value.value, str):
             node.body = body[1:] or [ast.Pass()]
+
+    span_names = set()
+
+    def strip(stmts):
+        out = []
+        for st in stmts:
+            if isinstance(st, ast.ImportFrom) and any(
+                    a.name == "profiling" for a in st.names):
+                continue
+            if isinstance(st, ast.Expr) and isinstance(st.value, ast.Call) \
+                    and (_is_profiling_call(st.value) or (
+                        isinstance(st.value.func, ast.Attribute)
+                        and isinstance(st.value.func.value, ast.Name)
+                        and st.value.func.value.id in span_names)):
+                continue
+            if isinstance(st, ast.Assign) and any(
+                    isinstance(t, ast.Attribute) and t.attr == "queued_ns"
+                    for t in st.targets):
+                continue
+            if isinstance(st, ast.With) and len(st.items) == 1 and \
+                    _is_profiling_call(st.items[0].context_expr):
+                var = st.items[0].optional_vars
+                if isinstance(var, ast.Name):
+                    span_names.add(var.id)
+                out.extend(strip(st.body))
+                continue
+            if isinstance(st, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                st.decorator_list = [d for d in st.decorator_list
+                                     if not _is_profiling_call(d)]
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                inner = getattr(st, field, None)
+                if isinstance(inner, list) and inner and not isinstance(
+                        st, ast.Module):
+                    setattr(st, field, strip(inner))
+            if isinstance(st, ast.For) and not st.body:
+                continue
+            out.append(st)
+        return out
+
+    tree.body = strip(tree.body)
     return ast.dump(tree)
 
 

@@ -1,8 +1,8 @@
 """The port's tooling against the JAX package's: ``tools/profiling.py``
-(``StepTimer``, ``trace``), ``TPU.PROFILE_DIR`` step tracing in the train
-loop, and ``interpret_prompt``."""
+(``trace``; its spans and counters are in ``test_torch_tracing.py``),
+``TPU.PROFILE_DIR`` step tracing in the train loop, and
+``interpret_prompt``."""
 
-import inspect
 import json
 import os
 import os.path as osp
@@ -16,23 +16,6 @@ import torch
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 FIX = osp.join(REPO, "tests", "fixtures", "golden_e2e")
-
-
-def test_step_timer_is_the_jax_one():
-    from clip_calibration_tpu.tools.profiling import StepTimer as JaxTimer
-    from clip_calibration_tpu_torch.tools.profiling import StepTimer
-    assert inspect.getsource(StepTimer) == inspect.getsource(JaxTimer)
-    times = [0.3, 0.1, 0.2, 0.5, 0.4, 0.25, 0.05]
-    timers = [StepTimer(), JaxTimer()]
-    for t in timers:
-        assert t.report() == {}
-        t.stop()  # stop before start records nothing
-        t.times.extend(times)
-    assert timers[0].report() == timers[1].report()
-    assert timers[0].report()["steps"] == 7
-    timers[0].start()
-    timers[0].stop()
-    assert len(timers[0].times) == 8 and timers[0].times[-1] >= 0
 
 
 def test_trace_writes_chrome_trace(tmp_path):
