@@ -4,8 +4,9 @@
 to each row's argmax class, and softmax, in one pass over device tensors
 (the reference runs the DAC row scaling as a separate torch pass after a
 numpy hop, ``trainers/calibration/distanse_aware_calibration.py:49-58``).
-``dac_class_confidence``: the DAC fit (top-k text-feature distances) on
-the device. Both are plain PyTorch: neither was a TPU kernel.
+``dac_class_confidence``: the port's DAC fit (top-k text-feature
+distances), in float64 on the device. Both are plain PyTorch: neither was
+a TPU kernel.
 """
 
 from __future__ import annotations
@@ -19,19 +20,24 @@ def dac_class_confidence(base_zs: torch.Tensor, cur_zs: torch.Tensor,
                          base_tuned: torch.Tensor, cur_tuned: torch.Tensor,
                          k: int = 5,
                          base_thresh: float = 0.05) -> torch.Tensor:
-    """Per-class confidence from top-k text-feature distances (math of
-    ``trainers/calibration/dac.py`` / reference ``fit``)."""
+    """Per-class confidence from top-k text-feature distances (reference
+    ``fit``): exp(-sum of the k smallest L2 distances to the base classes
+    / k), tuned over zero-shot, and 1.0 where the nearest tuned base
+    distance is under ``base_thresh``. Computes in float64 on the inputs'
+    device and returns a float64 tensor there."""
     def topk_scores(base, cur):
-        d2 = ((cur ** 2).sum(-1)[:, None] + (base ** 2).sum(-1)[None, :]
-              - 2.0 * cur @ base.T)
-        d = torch.sqrt(torch.clamp(d2, min=0.0))
+        # the difference form, as the reference's numpy fit: the Gram
+        # expansion loses digits to cancellation exactly where a current
+        # feature nearly coincides with a base one (the threshold's case)
+        d = torch.cdist(cur.double(), base.double(),
+                        compute_mode="donot_use_mm_for_euclid_dist")
         # fewer base classes than k: take them all, still divide by k
         # (reference semantics)
         top = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False).values
         return torch.exp(-top.sum(dim=1) / k), top.min(dim=1).values
 
-    zs_score, _ = topk_scores(base_zs.float(), cur_zs.float())
-    fs_score, fs_min = topk_scores(base_tuned.float(), cur_tuned.float())
+    zs_score, _ = topk_scores(base_zs, cur_zs)
+    fs_score, fs_min = topk_scores(base_tuned, cur_tuned)
     return torch.where(fs_min < base_thresh, torch.ones_like(fs_score),
                        fs_score / zs_score)
 

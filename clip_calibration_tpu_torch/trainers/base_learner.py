@@ -423,7 +423,8 @@ class VLBaseLearner(TrainerX):
             cfg.CALIBRATION.PROCAL.IF_PROCAL,
             val_dict,
             self.get_text_features(text_features_test,
-                                   val_dict=val_dict))
+                                   val_dict=val_dict),
+            device=self.device)
         calibrator.fit()
 
         # test-set proximity (cached only for the test split: the cache

@@ -9,6 +9,9 @@ tuned encoder; score = exp(-mean of top-k distances); per-class confidence
 < 0.05 (base-class detection — the reference reuses the tuned top-k array
 in that check, preserved here).
 
+The fit runs on the trainer's device in float64 (ops/scoring.py); the
+per-class confidences live on the host.
+
 predict: scale each sample's logit row by the confidence of its argmax
 class. Runs as one vectorized device op (the reference loops per sample on
 GPU); see also ops/scoring.py for the fused normalize-matmul-DAC kernel.
@@ -17,21 +20,10 @@ GPU); see also ops/scoring.py for the fused normalize-matmul-DAC kernel.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-
-def _topk_scores(base: np.ndarray, current: np.ndarray, k: int):
-    """For each current row: (exp(-mean of k smallest L2 distances to base),
-    smallest distance). Vectorized [n_cur, n_base] distance matrix."""
-    base = np.asarray(base, np.float64)
-    current = np.asarray(current, np.float64)
-    # class counts are small; exact fp64 pairwise norms for parity
-    d = np.linalg.norm(current[:, None, :] - base[None, :, :], axis=-1)
-    # reference always divides by k even when fewer than k base classes
-    # exist (np.sort(...)[:k] just yields them all)
-    k_eff = min(k, d.shape[1])
-    part = np.partition(d, k_eff - 1, axis=1)[:, :k_eff]
-    scores = np.exp(-np.sum(part, axis=1) / k)
-    return scores, part.min(axis=1)
+from ...ops.scoring import dac_class_confidence
+from ...tools.device import resolve_device
 
 
 class DistanceAwareCalibration:
@@ -40,15 +32,17 @@ class DistanceAwareCalibration:
 
     def fit(self, base_text_features_zs, current_text_features_zs,
             base_text_features_tuned, current_text_features_tuned,
-            k: int = 5) -> None:
-        zs_score, _ = _topk_scores(base_text_features_zs,
-                                   current_text_features_zs, k)
-        fs_score, fs_min = _topk_scores(base_text_features_tuned,
-                                        current_text_features_tuned, k)
-        conf = fs_score / zs_score
-        # base-class awareness: nearest tuned base feature almost identical
-        self.class_confidence = np.where(fs_min < 0.05, 1.0,
-                                         conf).astype(np.float64)
+            k: int = 5, device="cuda") -> None:
+        """The fit runs on ``device`` in float64
+        (``ops/scoring.py::dac_class_confidence``); the confidences come
+        back to the host as float64."""
+        dev = resolve_device(device)
+        feats = (torch.as_tensor(np.asarray(a, np.float64), device=dev)
+                 for a in (base_text_features_zs, current_text_features_zs,
+                           base_text_features_tuned,
+                           current_text_features_tuned))
+        self.class_confidence = dac_class_confidence(
+            *feats, k=k).cpu().numpy()
 
     def predict(self, logits: np.ndarray) -> np.ndarray:
         logits = np.asarray(logits, np.float32)

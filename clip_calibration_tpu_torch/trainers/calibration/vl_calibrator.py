@@ -28,13 +28,15 @@ class VLCalibration:
     {histogram_binning, isotonic_regression, multi_isotonic_regression};
     ``val_dict`` holds cached base-class validation logits/features/labels/
     knn-dists; ``text_feature_dict`` the 4-way zs/tuned x base/current text
-    features.
+    features; ``device`` where the DAC fit runs.
     """
 
     def __init__(self, cfg, base_calibration_mode=None,
                  base_bin_calibrator_name=None, dac_flag=False,
-                 procal_flag=False, val_dict=None, text_feature_dict=None):
+                 procal_flag=False, val_dict=None, text_feature_dict=None,
+                 device="cuda"):
         self.cfg = cfg
+        self.device = device
         self.base_calibration_mode = base_calibration_mode
         self.base_bin_calibrator_name = base_bin_calibrator_name
         self.dac_flag = dac_flag
@@ -69,7 +71,8 @@ class VLCalibration:
         dac = DistanceAwareCalibration()
         dac.fit(t["base_text_features_zs"], t["current_text_features_zs"],
                 t["base_text_features_tuned"],
-                t["current_text_features_tuned"], k=self.k_dac)
+                t["current_text_features_tuned"], k=self.k_dac,
+                device=self.device)
         return dac
 
     def _build_base(self):

@@ -49,6 +49,75 @@ def test_dac_class_confidence_matches_jax(k):
                                atol=1e-6)
 
 
+def _unit(x):
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _clip_width_features(seed, nb, nc, d=768):
+    """Unit-norm zero-shot and tuned text features at CLIP's width, in
+    float64."""
+    rng = np.random.default_rng(seed)
+    base_zs, cur_zs = _unit(rng.normal(size=(nb, d))), _unit(
+        rng.normal(size=(nc, d)))
+    base_t = _unit(base_zs + rng.normal(size=(nb, d)) * 0.03)
+    cur_t = _unit(cur_zs + rng.normal(size=(nc, d)) * 0.03)
+    return base_zs, cur_zs, base_t, cur_t
+
+
+@pytest.mark.parametrize("nb,nc,case", [(64, 48, None),
+                                        (4, 48, None),
+                                        (64, 48, "copied_base"),
+                                        (64, 48, "near_zero_shot_base")],
+                         ids=["64x48", "fewer_bases_than_k", "copied_base",
+                              "near_zero_shot_base"])
+def test_dac_fit_matches_jax_numpy_fit(nb, nc, case):
+    """The port's float64 device fit against the JAX package's numpy fit
+    at CLIP's width (768), k 5. A zero-shot current feature 1e-7 from a
+    base one holds the fit to the difference form: the Gram expansion
+    loses about a percent of that distance to cancellation."""
+    from clip_calibration_tpu.trainers.calibration.dac import (
+        DistanceAwareCalibration as JaxDAC)
+    feats = _clip_width_features(5, nb, nc)
+    copy_base = case == "copied_base"
+    if copy_base:
+        feats[3][7] = feats[2][11]  # a current class that is a base one
+    if case == "near_zero_shot_base":
+        u = _unit(np.random.default_rng(8).normal(size=feats[0].shape[1]))
+        feats[1][5] = feats[0][9] + 1e-7 * u
+    want, got = JaxDAC(), DistanceAwareCalibration()
+    want.fit(*feats, k=5)
+    got.fit(*feats, k=5, device="cpu")
+    assert got.class_confidence.dtype == np.float64
+    if copy_base:
+        assert got.class_confidence[7] == 1.0
+    np.testing.assert_allclose(got.class_confidence, want.class_confidence,
+                               rtol=1e-12, atol=0)
+
+
+def test_dac_base_threshold_in_float64():
+    """Current rows at 0.05 - 1e-9 and 0.05 + 1e-9 from their nearest
+    tuned base feature fall on either side of the base-class threshold; a
+    float32 fit cannot resolve the 2e-9 between them."""
+    base_zs, cur_zs, base_t, cur_t = _clip_width_features(6, 64, 8)
+    rng = np.random.default_rng(7)
+    for row, r in ((0, 0.05 - 1e-9), (1, 0.05 + 1e-9)):
+        u = _unit(rng.normal(size=base_t.shape[1]))
+        cur_t[row] = base_t[row] + r * u
+    np.testing.assert_allclose(
+        np.linalg.norm(cur_t[:2] - base_t[:2], axis=1),
+        [0.05 - 1e-9, 0.05 + 1e-9], rtol=0, atol=1e-13)
+    dac = DistanceAwareCalibration()
+    dac.fit(base_zs, cur_zs, base_t, cur_t, k=5, device="cpu")
+    assert dac.class_confidence[0] == 1.0
+    assert dac.class_confidence[1] != 1.0
+
+
+def test_dac_class_confidence_is_float64_for_float32_inputs():
+    got = TS.dac_class_confidence(*(torch.from_numpy(a)
+                                    for a in _features(0)), k=5)
+    assert got.dtype == torch.float64
+
+
 @pytest.mark.parametrize("normalized", [False, True])
 def test_fused_dac_scores_matches_jax(normalized):
     rng = np.random.default_rng(1)
@@ -162,7 +231,8 @@ def test_dac_matches_golden():
         g = json.load(f)
     dac = DistanceAwareCalibration()
     dac.fit(np.array(g["base_zs"]), np.array(g["cur_zs"]),
-            np.array(g["base_t"]), np.array(g["cur_t"]), k=g["k"])
+            np.array(g["base_t"]), np.array(g["cur_t"]), k=g["k"],
+            device="cpu")
     np.testing.assert_allclose(dac.class_confidence,
                                np.array(g["class_confidence"]),
                                rtol=1e-10, atol=1e-12)

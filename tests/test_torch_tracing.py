@@ -214,7 +214,8 @@ def test_eval_calibrators_leave_one_span_per_call(tmp_path):
                val_f, 3, device="cpu")}
     names = ("calib.fit", "calib.knn", "calib.score", "eval.metrics")
     before = _counts(*names)
-    cal = VLCalibration(cfg, None, None, True, False, val, text)
+    cal = VLCalibration(cfg, None, None, True, False, val, text,
+                        device="cpu")
     cal.fit()
     knn = PX.get_knn_dists(val_f, test_f, 3, device="cpu")
     prox = PX.proximity_from_dists(knn)
