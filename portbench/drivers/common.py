@@ -12,10 +12,12 @@ long as the system is being built.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 
 import torch
 
+from .. import schema as S
 from .. import traffic as T
 from .. import weights as W
 
@@ -23,21 +25,48 @@ from .. import weights as W
 LOADER_USERS = ("clip_calibration_tpu_torch.trainers.coop",
                 "clip_calibration_tpu_torch.trainers.base_learner",
                 "clip_calibration_tpu_torch.serving")
-CLIP_KEYS = ("embed_dim", "image_resolution", "vision_layers",
-             "vision_width", "vision_patch_size", "transformer_width",
-             "transformer_heads", "transformer_layers", "context_length",
-             "vocab_size")
+#: what the port runs where its CLIPConfig has no field of that name:
+#: OpenAI's layout (``schema.py``)
+PORT_DEFAULTS = {"vision_mlp_width": lambda c: 4 * c.vision_width,
+                 "transformer_mlp_width": lambda c: 4 * c.transformer_width,
+                 "activation": lambda c: "quick_gelu"}
+
+
+def port_config(cfg: dict):
+    """The port's CLIPConfig from every key of the configuration that
+    names one of its fields. Raises ``ValueError``, naming each key, where
+    the port would run something other than what the configuration
+    states: its vision heads (a property of the port's config), and each
+    key of ``PORT_DEFAULTS``, read from the port's config where it has a
+    field of that name (``None`` there: OpenAI's value)."""
+    from clip_calibration_tpu_torch.models.clip import CLIPConfig
+    fields = {f.name for f in dataclasses.fields(CLIPConfig)}
+    ccfg = CLIPConfig(**{k: v for k, v in cfg.items() if k in fields})
+    stated = {"vision_heads": cfg["vision_heads"],
+              "vision_mlp_width": S.mlp_width(cfg, "vision"),
+              "transformer_mlp_width": S.mlp_width(cfg, "transformer"),
+              "activation": S.activation(cfg)}
+    wrong = []
+    for key, want in stated.items():
+        got = getattr(ccfg, key, None)
+        if got is None:
+            got = PORT_DEFAULTS[key](ccfg)
+        if got != want:
+            wrong.append(f"{key}: the configuration states {want!r}, the "
+                         f"port runs {got!r}")
+    if wrong:
+        raise ValueError("the port cannot run this configuration: "
+                         + "; ".join(wrong))
+    return ccfg
 
 
 def port_model(run):
     """(the port's CLIP module on the run's weights, its CLIPConfig, the
-    weights) for the run's configuration and seed."""
-    from clip_calibration_tpu_torch.models.clip import CLIP, CLIPConfig
+    weights) for the run's configuration and seed; the configuration is
+    checked (``port_config``) before any weight is made."""
+    from clip_calibration_tpu_torch.models.clip import CLIP
     cfg = run.config
-    ccfg = CLIPConfig(**{k: cfg[k] for k in CLIP_KEYS})
-    if ccfg.vision_heads != cfg["vision_heads"]:
-        raise ValueError(f"the port runs {ccfg.vision_heads} vision heads, "
-                         f"the configuration states {cfg['vision_heads']}")
+    ccfg = port_config(cfg)
     weights = W.make(cfg, T.sub_seed(run.seed, "weights"), run.device)
     model = CLIP(ccfg, W.DTYPES[cfg["precision"]], run.device)
     W.load_into(model, weights)

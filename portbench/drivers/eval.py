@@ -146,7 +146,8 @@ class Driver:
                 t.cfg, cal.BASE_CALIBRATION_MODE,
                 cal.BIN.BIN_CALIBRATOR_NAME, cal.DAC.IF_DAC,
                 cal.PROCAL.IF_PROCAL, self.val_dict,
-                {**self.text, "current_text_features_tuned": txt_f})
+                {**self.text, "current_text_features_tuned": txt_f},
+                device=t.device)
             calibrator.fit()
             knn = PX.get_knn_dists(self.val_dict["val_image_features"],
                                    img_f, cal.PROCAL.IMAGE_K,

@@ -108,8 +108,9 @@ class Driver:
                         all_done.set()
             return cb
 
-        # the slice is the window's last seconds: the profiler stops (a
-        # drain and a flush) after the last send, not among them
+        # the slice is the window's last seconds and the answers still
+        # due after them: the profiler stops (a drain and a flush) once
+        # every request is answered, with no thread running an operation
         trace_from = seconds - tr["trace_last_seconds"]
         i = 0
         with gc_pauses:
@@ -125,9 +126,9 @@ class Driver:
                     self.batcher.submit(self.pool[i % P]).add_done_callback(
                         answered(i))
                     i += 1
-            tracer.stop()
             end = max(seconds, time.perf_counter() - t0) + 60.0
             all_done.wait(timeout=max(end - (time.perf_counter() - t0), 0.0))
+            tracer.stop()
         stop = time.perf_counter() - t0
         missing = np.isnan(done) | ~self.answered
         lat = np.where(missing, stop, done) - due

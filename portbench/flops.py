@@ -12,8 +12,9 @@ whatever implements the work:
 - per unit of model work (an image through the vision tower, a class row
   through the text tower, a text row's input-gradient pass), split by the
   type its products run in, for ``mfu``. A product of [m, k] by [k, n]
-  is 2mkn operations; attention over L tokens of h heads of width d is
-  4hL^2d forward (QK^T and PV) and 10hL^2d backward (K2's count: PV's
+  is 2mkn operations; a block's MLP is counted at the tower's MLP width
+  (``schema.mlp_width``); attention over L tokens of h heads of width d
+  is 4hL^2d forward (QK^T and PV) and 10hL^2d backward (K2's count: PV's
   two gradients, QK^T's two, and QK^T again). Element-wise work
   (LayerNorm, GELU, softmax, residual adds) is not counted.
 """
@@ -21,6 +22,8 @@ whatever implements the work:
 from __future__ import annotations
 
 from typing import Dict
+
+from . import schema
 
 DTYPE_BYTES = {"bfloat16": 2, "float32": 4}
 
@@ -57,33 +60,45 @@ def k3(M: int, K: int, N: int, rescaled: bool) -> Dict[str, float]:
 
 # -- model work -------------------------------------------------------------
 
-def _block_products(L: int, width: int) -> float:
-    """A residual block's four projections over L tokens."""
-    return 2.0 * L * width * (3 * width + width + 4 * width + 4 * width)
+def _block_products(L: int, width: int, mlp: int) -> float:
+    """A residual block's four projections over L tokens: qkv, the
+    attention's output, and the MLP's two at its hidden width ``mlp``."""
+    return 2.0 * L * width * (3 * width + width + mlp + mlp)
 
 
-def _attention(L: int, width: int) -> float:
-    return 4.0 * L * L * width
+def _attention(L: int, cfg: dict, tower: str) -> float:
+    """QK^T and PV over L tokens, at the tower's heads x head width."""
+    heads = cfg[f"{tower}_heads"]
+    return 4.0 * L * L * (heads * schema.head_width(cfg, tower))
+
+
+def _tower(cfg: dict, tower: str, L: int) -> Dict[str, float]:
+    """The tower's residual blocks over L tokens."""
+    layers = cfg[f"{tower}_layers"]
+    return {"products": layers * _block_products(
+                L, cfg[f"{tower}_width"], schema.mlp_width(cfg, tower)),
+            "attention": layers * _attention(L, cfg, tower)}
 
 
 def vision_forward(cfg: dict) -> Dict[str, float]:
     """One image through the ViT: {"products": ..., "attention": ...}
     operations, at the real token count (patches + class token)."""
     L = (cfg["image_resolution"] // cfg["vision_patch_size"]) ** 2 + 1
-    w, layers = cfg["vision_width"], cfg["vision_layers"]
+    w = cfg["vision_width"]
     patch = 2.0 * (L - 1) * 3 * cfg["vision_patch_size"] ** 2 * w
     proj = 2.0 * w * cfg["embed_dim"]
-    return {"products": patch + layers * _block_products(L, w) + proj,
-            "attention": layers * _attention(L, w)}
+    blocks = _tower(cfg, "vision", L)
+    return {"products": patch + blocks["products"] + proj,
+            "attention": blocks["attention"]}
 
 
 def text_forward(cfg: dict, L: int) -> Dict[str, float]:
     """One class row of L tokens through the text tower (L: the length
     the rows share, one past the furthest end-of-text token)."""
-    w, layers = cfg["transformer_width"], cfg["transformer_layers"]
-    return {"products": layers * _block_products(L, w)
-            + 2.0 * w * cfg["embed_dim"],
-            "attention": layers * _attention(L, w)}
+    blocks = _tower(cfg, "transformer", L)
+    return {"products": blocks["products"]
+            + 2.0 * cfg["transformer_width"] * cfg["embed_dim"],
+            "attention": blocks["attention"]}
 
 
 def text_input_grad(cfg: dict, L: int) -> Dict[str, float]:

@@ -18,9 +18,36 @@ standard output is the result; the numbers compared, each beside its
 limit, are the last lines of standard error and the result's last key.
 
 ``--rehearse`` runs the same path on the CPU at a ViT-Test-sized
-configuration and the traffic file's ``rehearsal`` sizes, with the
-kernels' plain versions; its ``device`` names the CPU. Without it a run
-needs a card, and exits 2 without one.
+configuration (``rehearsal_config``) and the traffic file's
+``rehearsal`` sizes, with the kernels' plain versions; its ``device``
+names the CPU. Without it a run needs a card, and exits 2 without one.
+
+A configuration file (``configs/<config>.json``) states a CLIP model
+whose towers are pre-LN transformers (a ViT image tower, a causal text
+tower pooled at the end-of-text token). Its keys, of which the last
+three take OpenAI's value when absent (``schema.py``):
+
+- ``name``, ``model`` (the port's backbone name), ``source``,
+  ``reduced``; ``source_notes`` and ``assumed`` for the reader: what it
+  is, where it comes from, and what was set without a source;
+- ``precision``: ``"bf16"`` or ``"fp32"``, the products' type;
+- ``embed_dim``: the joint embedding's width;
+- ``image_resolution``, ``vision_patch_size``: the image's side and the
+  patches' (``(resolution / patch)^2 + 1`` tokens with the class token);
+- ``vision_layers``, ``vision_width``, ``vision_heads``: the image
+  tower's depth, width and heads (head width: width / heads);
+- ``transformer_layers``, ``transformer_width``, ``transformer_heads``:
+  the text tower's;
+- ``context_length``, ``vocab_size``: the text tower's token positions
+  and vocabulary (OpenAI's: 77, 49408);
+- ``vision_mlp_width``, ``transformer_mlp_width`` (optional; 4 x the
+  tower's width): each tower's MLP hidden width;
+- ``activation`` (optional; ``"quick_gelu"``): the MLP's activation,
+  ``"quick_gelu"`` (``x * sigmoid(1.702 x)``) or ``"gelu"`` (exact, erf).
+
+The keys that name fields of the port's ``CLIPConfig`` build it; where
+the port cannot run what the file states, the run stops before any
+weight is made and names the key (``drivers/common.py::port_config``).
 """
 
 from __future__ import annotations
@@ -35,6 +62,8 @@ import os.path as osp
 import sys
 import time
 from types import SimpleNamespace
+
+from . import schema
 
 HERE = osp.dirname(osp.abspath(__file__))
 ROOT = osp.dirname(HERE)
@@ -56,6 +85,20 @@ def _json(path: str) -> dict:
         return json.load(f)
 
 
+def rehearsal_config(config: dict) -> dict:
+    """``config`` at ``REHEARSAL_SIZES``, keeping its activation; an MLP
+    width it states keeps its ratio to the tower's width, rounded to a
+    multiple of 8. A configuration that states neither rehearses at
+    ``REHEARSAL_SIZES`` alone."""
+    out = {**config, **REHEARSAL_SIZES}
+    for tower in schema.TOWERS:
+        key = f"{tower}_mlp_width"
+        if key in config:
+            ratio = config[key] / config[f"{tower}_width"]
+            out[key] = 8 * max(1, round(ratio * out[f"{tower}_width"] / 8))
+    return out
+
+
 def load_cell(workload: str, rehearse: bool = False) -> SimpleNamespace:
     """Everything ``BENCHMARK.json`` and the cell's files say about it."""
     spec = _json(osp.join(ROOT, "BENCHMARK.json"))
@@ -68,7 +111,7 @@ def load_cell(workload: str, rehearse: bool = False) -> SimpleNamespace:
     config = _json(osp.join(ROOT, conf["file"]))
     traffic = _json(osp.join(HERE, "traffic", cell["traffic"] + ".json"))
     if rehearse:
-        config = {**config, **REHEARSAL_SIZES}
+        config = rehearsal_config(config)
         traffic = {**traffic, **traffic.get("rehearsal", {})}
 
     def ours(m):

@@ -1,13 +1,14 @@
 """Plain PyTorch CLIP: the benchmark's reference for the port.
 
 OpenAI CLIP's forward (https://github.com/openai/CLIP, ``clip/model.py``):
-pre-LN residual blocks with QuickGELU, a ViT image tower (patches as one
-product, class token, positions, ``ln_pre``, blocks, ``ln_post`` on the
-class token, projection) and a causal text tower pooled at the
-end-of-text token. Plain tensor operations, no fused kernels, no padding
-of the token axis, computed in blocks of rows so that it fits beside
-nothing else. It reads the benchmark's weight dict (``weights.py``) and
-imports nothing of the port.
+pre-LN residual blocks whose MLP has the configuration's width and
+activation (QuickGELU, or the exact GELU of OpenCLIP's ``nn.GELU``), a
+ViT image tower (patches as one product, class token, positions,
+``ln_pre``, blocks, ``ln_post`` on the class token, projection) and a
+causal text tower pooled at the end-of-text token. Plain tensor
+operations, no fused kernels, no padding of the token axis, computed in
+blocks of rows so that it fits beside nothing else. It reads the
+benchmark's weight dict (``weights.py``) and imports nothing of the port.
 
 ``products`` says how every product is computed:
 
@@ -30,6 +31,8 @@ import contextlib
 from typing import Dict, Optional
 
 import torch
+
+from .. import schema
 
 MEAN = (0.48145466, 0.4578275, 0.40821073)
 STD = (0.26862954, 0.26130258, 0.27577711)
@@ -84,6 +87,7 @@ class ReferenceCLIP:
         self.cfg = cfg
         self.w = weights
         self.products = products
+        self.activation = schema.activation(cfg)
         self.act_scales: Optional[Dict[str, torch.Tensor]] = None
         self._calibrating: Optional[Dict[str, torch.Tensor]] = None
         self._dynamic = False
@@ -154,7 +158,10 @@ class ReferenceCLIP:
         x = x + self.mm(ctx, p + "attn.wo") + self._f(p + "attn.bo")
         h = self._ln(x, p + "ln_2")
         y = self.mm(h, p + "mlp.w_fc") + self._f(p + "mlp.b_fc")
-        y = y * torch.sigmoid(1.702 * y)
+        if self.activation == "gelu":
+            y = torch.nn.functional.gelu(y)
+        else:
+            y = y * torch.sigmoid(1.702 * y)
         return x + self.mm(y, p + "mlp.w_proj") + self._f(p + "mlp.b_proj")
 
     # -- towers ----------------------------------------------------------------

@@ -4,6 +4,7 @@
         --trace <0|1> [--rehearse]
 """
 
+import faulthandler
 import os
 import os.path as osp
 import sys
@@ -25,6 +26,8 @@ def _since_process_start() -> float:
 
 if __name__ == "__main__":
     t0 = time.perf_counter() - _since_process_start()
+    # a crash in native code prints every thread's Python stack
+    faulthandler.enable()
     here = osp.dirname(osp.abspath(__file__))
     sys.path[:] = [p for p in sys.path if osp.abspath(p or ".") != here]
     sys.path.insert(0, osp.dirname(here))

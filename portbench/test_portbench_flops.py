@@ -115,3 +115,59 @@ def test_attention_launches_counted_at_the_real_length(kind, L, Lp):
     want = readers._launch_bound("k1", (100, L, 3072, 16, "bfloat16"))
     c = flops.k1(100, L, 3072, 16, "bfloat16")
     assert want == bounds.bound_seconds(c["ops"], c["bytes"], "bfloat16")
+
+
+#: ``flops.py``'s counts before the MLP width became a key of the
+#: configuration: (products, attention) operations
+PINNED = {
+    ("vit-b16", "vision"): (33696251904.0, 1430654976.0),
+    ("vit-b16", "text", 19): (1434976256.0, 8871936.0),
+    ("vit-b16", "text", 23): (1736966144.0, 13000704.0),
+    ("vit-b16", "text", 77): (5813829632.0, 145711104.0),
+    ("vit-b16", "grad", 19): (1434976256.0, 22179840.0),
+    ("vit-b16", "grad", 23): (1736966144.0, 32501760.0),
+    ("vit-b16", "grad", 77): (5813829632.0, 364277760.0),
+    ("vit-l14", "vision"): (155532656640.0, 6492880896.0),
+    ("vit-l14", "text", 19): (3228696576.0, 13307904.0),
+    ("vit-l14", "text", 23): (3908173824.0, 19501056.0),
+    ("vit-l14", "text", 77): (13081116672.0, 218566656.0),
+    ("vit-l14", "grad", 19): (3228696576.0, 33269760.0),
+    ("vit-l14", "grad", 23): (3908173824.0, 48752640.0),
+    ("vit-l14", "grad", 77): (13081116672.0, 546416640.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PINNED), ids=str)
+def test_model_work_pinned(case):
+    cfg, kind = _config(case[0]), case[1]
+    got = (flops.vision_forward(cfg) if kind == "vision" else
+           flops.text_forward(cfg, case[2]) if kind == "text" else
+           flops.text_input_grad(cfg, case[2]))
+    assert (got["products"], got["attention"]) == PINNED[case]
+
+
+def test_model_work_at_an_openclip_layout():
+    # vision 208 wide as 2 heads of 104, MLP 1024; text 128 as 2 heads of
+    # 64, MLP 512; 2 layers each; patch 8 at 32 px: 16 patches + class
+    cfg = {"embed_dim": 32, "image_resolution": 32, "vision_layers": 2,
+           "vision_width": 208, "vision_patch_size": 8, "vision_heads": 2,
+           "vision_mlp_width": 1024, "transformer_width": 128,
+           "transformer_heads": 2, "transformer_layers": 2,
+           "transformer_mlp_width": 512, "activation": "gelu"}
+    L = 17
+    v = flops.vision_forward(cfg)
+    block = 2 * L * (208 * 3 * 208 + 208 * 208 + 208 * 1024 + 1024 * 208)
+    assert v["products"] == 2 * 16 * (8 * 8 * 3) * 208 + 2 * block \
+        + 2 * 208 * 32
+    assert v["attention"] == 2 * 4 * 2 * L * L * 104
+    t = flops.text_forward(cfg, 10)
+    block = 2 * 10 * (128 * 3 * 128 + 128 * 128 + 128 * 512 + 512 * 128)
+    assert t["products"] == 2 * block + 2 * 128 * 32
+    assert t["attention"] == 2 * 4 * 2 * 10 * 10 * 64
+    g = flops.text_input_grad(cfg, 10)
+    assert g == {"products": t["products"],
+                 "attention": 2 * 10 * 2 * 10 * 10 * 64}
+    # the vision MLP at its own width, not 4 x 208
+    openai = flops.vision_forward({**cfg, "vision_mlp_width": 4 * 208})
+    assert v["products"] - openai["products"] == \
+        2 * 2 * L * 208 * 2 * (1024 - 832)

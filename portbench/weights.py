@@ -2,12 +2,13 @@
 
 The names and layouts are those both sides read: the port's CLIP module
 parameters (``<tower>.blocks.<i>.attn.wqkv`` [in, out], ...) and the
-reference (``reference/clip_ref.py``). Values follow OpenAI CLIP's
-initialisation (``clip/model.py``: ``initialize_parameters``), with
-small random biases and LayerNorm scales near one so that every term of
-the forward is exercised. All values come from one ``torch.Generator``
-on the device in one call; the matmul weights are then rounded to the
-configuration's precision, the rest kept in fp32.
+reference (``reference/clip_ref.py``); each tower's MLP has the width
+the configuration states (``schema.mlp_width``). Values follow OpenAI
+CLIP's initialisation (``clip/model.py``: ``initialize_parameters``),
+with small random biases and LayerNorm scales near one so that every
+term of the forward is exercised. All values come from one
+``torch.Generator`` on the device in one call; the matmul weights are
+then rounded to the configuration's precision, the rest kept in fp32.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from . import schema
+
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 #: parameter name suffixes held in the compute precision (the products'
@@ -25,7 +28,8 @@ MATMUL_WEIGHTS = ("wqkv", "wo", "w_fc", "w_proj", "patch_kernel", "proj",
                   "text_projection")
 
 
-def _blocks(prefix: str, layers: int, width: int) -> List[Tuple]:
+def _blocks(prefix: str, layers: int, width: int,
+            mlp: int) -> List[Tuple]:
     out = []
     resid = width ** -0.5 * (2 * layers) ** -0.5
     for i in range(layers):
@@ -38,9 +42,9 @@ def _blocks(prefix: str, layers: int, width: int) -> List[Tuple]:
                 (p + "attn.bo", (width,), 0.02),
                 (p + "ln_2.scale", (width,), "ln"),
                 (p + "ln_2.bias", (width,), 0.02),
-                (p + "mlp.w_fc", (width, 4 * width), (2 * width) ** -0.5),
-                (p + "mlp.b_fc", (4 * width,), 0.02),
-                (p + "mlp.w_proj", (4 * width, width), resid),
+                (p + "mlp.w_fc", (width, mlp), (2 * width) ** -0.5),
+                (p + "mlp.b_fc", (mlp,), 0.02),
+                (p + "mlp.w_proj", (mlp, width), resid),
                 (p + "mlp.b_proj", (width,), 0.02)]
     return out
 
@@ -56,14 +60,16 @@ def layout(cfg: dict) -> List[Tuple[str, tuple, object]]:
            ("visual.positional_embedding", (L, vw), vw ** -0.5),
            ("visual.ln_pre.scale", (vw,), "ln"),
            ("visual.ln_pre.bias", (vw,), 0.02)]
-    out += _blocks("visual", cfg["vision_layers"], vw)
+    out += _blocks("visual", cfg["vision_layers"], vw,
+                   schema.mlp_width(cfg, "vision"))
     out += [("visual.ln_post.scale", (vw,), "ln"),
             ("visual.ln_post.bias", (vw,), 0.02),
             ("visual.proj", (vw, E), vw ** -0.5),
             ("text.token_embedding", (cfg["vocab_size"], tw), 0.02),
             ("text.positional_embedding", (cfg["context_length"], tw),
              0.01)]
-    out += _blocks("text", cfg["transformer_layers"], tw)
+    out += _blocks("text", cfg["transformer_layers"], tw,
+                   schema.mlp_width(cfg, "transformer"))
     out += [("text.ln_final.scale", (tw,), "ln"),
             ("text.ln_final.bias", (tw,), 0.02),
             ("text.text_projection", (tw, E), tw ** -0.5),
