@@ -308,6 +308,16 @@ EDGES = [
 # K1 only: batch 1 at a long sequence (the launcher splits the queries
 # into one-warp blocks to fill the card)
 K1_EDGES = EDGES + [(1, 1024, 1024, 1024, 16, False)]
+# K1 bf16 only, at head dim 104 (OpenCLIP ViT-bigG/14's vision tower, 16
+# heads of 104; K2 and the fp32 K1 are not compiled for it): timed at the
+# tower's batch-32 shape unpadded and as the tower pads it, then edges: one
+# head, two warps a block (L <= 32), ragged causal tiles, batch 1 at a
+# long sequence (one-warp blocks)
+K1_D104_TIMED = [(32, 257, 257, 1664, 16, False),
+                 (32, 257, 272, 1664, 16, False)]
+K1_D104_EDGES = [(2, 257, 272, 1664, 16, False), (1, 17, 32, 104, 1, False),
+                 (4, 20, 32, 416, 4, False), (3, 77, 77, 208, 2, True),
+                 (1, 1024, 1024, 1664, 16, False)]
 # K2 only: both sides of its bf16 route switch (one fused kernel at L <=
 # 64, the dq and dk/dv kernels above), at head dims 16, 32 and 64
 K2_EDGES = EDGES + [(3, L, L, 4 * d, 4, True) for L in (1, 16, 64, 65)
@@ -316,11 +326,14 @@ K2_EDGES = EDGES + [(3, L, L, 4 * d, 4, True) for L in (1, 16, 64, 65)
 
 def check_kernels(device, launched):
     """K1 vs its plain version, timed, at every (qkv shape, heads, mask)
-    the paths launched it with, in bf16 and fp32; then correctness only
-    at the edges the paths do not reach (ragged L, other head dims, the
-    ViT-L sequence lengths)."""
+    the paths launched it with, in bf16 and fp32, and in bf16 at
+    ViT-bigG/14's vision shapes (head dim 104); then correctness only at
+    the edges the paths do not reach (ragged L, other head dims, the ViT-L
+    sequence lengths, head dim 104 in bf16), and the refusal of head dim
+    104 by the fp32 K1 and by K2."""
     import torch
     from clip_calibration_tpu_torch.ops.mha_qkv import (mha_qkv,
+                                                        mha_qkv_bwd,
                                                         mha_qkv_reference)
     from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
                                                             time_ms)
@@ -328,10 +341,15 @@ def check_kernels(device, launched):
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     cases = []
     gen = torch.Generator(device=device).manual_seed(0)
-    for (B, L, D3), H, mask, calls in by_shape(launched):
+    timed_cases = [(shape, H, mask, calls, (torch.bfloat16, torch.float32))
+                   for shape, H, mask, calls in by_shape(launched)]
+    timed_cases += [((B, L, 3 * D), H, pad_mask(real, L, causal, device), {},
+                     (torch.bfloat16,))
+                    for B, real, L, D, H, causal in K1_D104_TIMED]
+    for (B, L, D3), H, mask, calls, dtypes in timed_cases:
         kind, real = mask_kind(mask)
         D = D3 // 3
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             qkv = torch.randn((B, L, D3), generator=gen, device=device,
                               dtype=torch.float32).to(dtype)
@@ -367,19 +385,39 @@ def check_kernels(device, launched):
     del flush
 
     errors = []
-    for B, real, L, D, H, causal in K1_EDGES:
+    edges = [(e, (torch.bfloat16, torch.float32)) for e in K1_EDGES]
+    edges += [(e, (torch.bfloat16,)) for e in K1_D104_EDGES]
+    for (B, real, L, D, H, causal), dtypes in edges:
         mask = pad_mask(real, L, causal, device)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             qkv = torch.randn((B, L, 3 * D), generator=gen, device=device,
                               dtype=torch.float32).to(dtype)
             err, ok = _compare(mha_qkv, mha_qkv_reference, TOL, qkv, mask, H)
             errors.append({"qkv": [B, L, 3 * D], "heads": H,
                            "dtype": str(dtype).split(".")[-1],
                            "max_abs_err": err, "ok": ok})
-    emit("kernel mha_qkv_fwd edges", cases=errors)
-    if not all(e["ok"] for e in errors):
+    # what is not compiled at head dim 104 raises by name, never falls back
+    refused = []
+    qkv = torch.zeros((1, 16, 3 * 208), device=device)
+    mask = torch.zeros((16, 16), device=device)
+    for kernel, dtype, call in (
+            ("K1", torch.float32, lambda t: mha_qkv(t, mask, 2)),
+            ("K2", torch.bfloat16, lambda t: mha_qkv_bwd(
+                t, mask, t[..., :208].contiguous(), 2))):
+        try:
+            call(qkv.to(dtype))
+            said = None
+        except ValueError as e:
+            said = str(e)
+        ok = said is not None and all(
+            w in said for w in ("104", kernel, str(dtype)[6:]))
+        refused.append({"kernel": kernel, "dtype": str(dtype)[6:],
+                        "head_dim": 104, "error": said, "ok": ok})
+    emit("kernel mha_qkv_fwd edges", cases=errors, refused=refused)
+    if not all(e["ok"] for e in errors + refused):
         raise AssertionError("mha_qkv_fwd disagrees with its plain version "
-                             "at an edge shape")
+                             "at an edge shape, or head dim 104 ran where "
+                             "no kernel is compiled for it")
     return cases
 
 

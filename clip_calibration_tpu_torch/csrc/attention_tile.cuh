@@ -30,6 +30,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// m16n8k8 bf16 (a head dim that is 8 past a multiple of 16: its last 8
+// columns): A a0 (g, 2t..2t+1), a1 (g+8, ..); B b0 (k 2t..2t+1, n g).
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4],
+                                            const uint32_t (&a)[2],
+                                            uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -60,6 +72,29 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// Two 8x8 b16 matrices, as ldmatrix_x4's first two (lanes 0..15 give the
+// row addresses).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
+                                            const void* p) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
+}
+
+// Two transposed 8x8 bf16 matrices, as ldmatrix_x4_trans's first two.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
+                                                  const __nv_bfloat16* p) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
       : "r"(addr));
 }
 
@@ -128,13 +163,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// bf16 per shared-memory row of a [rows, HD] tile: HD padded so that a
+// row is an odd number of 16-byte units (HD + 8 for HD 16, 32, 64; HD + 16
+// for 104), so the 8 row addresses of an ldmatrix, and the fragment reads,
+// fall on distinct banks.
+__host__ __device__ constexpr int smem_row(int hd) {
+  return (hd / 8) % 2 ? hd + 16 : hd + 8;
+}
+
 // cp.async copy of rows [row0, row0 + ROWS) x [0, HD) of a strided bf16
-// slice into a ROWS x HD tile in shared memory, row stride HD + 8 (so
-// ldmatrix and the fragment reads are free of bank conflicts). Rows at or
-// past `rows` are zero-filled. Every thread of the block issues its share;
-// the caller commits. The kernels keep two such tiles per operand, a ring:
-// the copy of key tile j + 1 is in flight while the warps compute tile j.
-template <int ROWS, int HD>
+// slice into a ROWS x HD tile in shared memory, row stride KS (default
+// smem_row(HD)). Rows at or past `rows` are zero-filled. Every thread of
+// the block issues its share; the caller commits. The kernels keep two
+// such tiles per operand, a ring: the copy of key tile j + 1 is in flight
+// while the warps compute tile j.
+template <int ROWS, int HD, int KS = smem_row(HD)>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           long long stride, int row0,
@@ -143,7 +186,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   for (int i = threadIdx.x; i < CHUNKS; i += threads) {
     const int r = i / (HD / 8), c = (i % (HD / 8)) * 8, row = row0 + r;
     const bool ok = row < rows;
-    cp_async16(dst + r * (HD + 8) + c, ok ? src + row * stride + c : src, ok);
+    cp_async16(dst + r * KS + c, ok ? src + row * stride + c : src, ok);
   }
 }
 

@@ -47,6 +47,16 @@
 //   The [L, L] scores never leave the SM and the output is written once,
 //   straight into its head's columns. exp is __expf (ex2.approx of
 //   x log2 e), whose error is far below bf16's.
+// - Head dim 104 (OpenCLIP ViT-bigG/14's vision tower, 16 heads of 104):
+//   104 = 6 x 16 + 8, so QK^T takes six m16n8k16 steps over d and one
+//   m16n8k8 step over its last 8 columns (B from ldmatrix.x2), and P V has
+//   13 output n-tiles, the last one alone (ldmatrix.x2.trans): no padded
+//   column is loaded or multiplied. Shared-memory rows are 120 bf16 (15
+//   16-byte units: an odd count keeps ldmatrix's 8 rows on distinct
+//   banks; 112 would pair them). A row is 13 16-byte cp.async copies. At
+//   L 257 (streamed mask, one head a block, one q buffer) a 4-warp block
+//   holds 111 KB, so two share an SM; o[13][4] and q's 26 fragment
+//   registers fit without spilling (the build line's ptxas counts).
 //
 // fp32 (the golden-parity precision; fp32 FMAs on the CUDA cores, no tensor
 // cores, so no TF32): bound by operations, 63.5 us at the vision shape
@@ -111,13 +121,16 @@ template <int HD, int NW>
 struct Fwd {
   static constexpr int THREADS = 32 * NW;
   static constexpr int ROWS = 16 * NW;       // query rows per block
-  static constexpr int KS = HD + 8;          // bf16 per K/V/q smem row
+  static constexpr int KS = smem_row(HD);    // bf16 per K/V/q smem row
   static constexpr int KV = MBK * KS;        // bf16 per K (or V) tile
-  // shared memory: the ring (K and V per stage), q (two heads), the mask
+  // shared memory: the ring (K and V per stage), q (two buffers where a
+  // block walks two heads or more, else one), the mask
   static constexpr int RING_BYTES = STAGES * 2 * KV * 2;
-  static constexpr int Q_BYTES = 2 * ROWS * KS * 2;
-  static size_t smem(bool whole, int mstride) {
-    return RING_BYTES + Q_BYTES +
+  __host__ __device__ static constexpr int q_bytes(int hg) {
+    return (hg > 1 ? 2 : 1) * ROWS * KS * 2;
+  }
+  static size_t smem(bool whole, int mstride, int hg) {
+    return RING_BYTES + q_bytes(hg) +
            (whole ? (size_t)ROWS * mstride * 4
                   : (size_t)STAGES * ROWS * MT_STRIDE * 4);
   }
@@ -134,7 +147,8 @@ __global__ void __launch_bounds__(NW * 32)
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* qs = ring + STAGES * 2 * F::KV;
-  float* ms = reinterpret_cast<float*>(smem + F::RING_BYTES + F::Q_BYTES);
+  float* ms =
+      reinterpret_cast<float*>(smem + F::RING_BYTES + F::q_bytes(HG));
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
@@ -170,8 +184,13 @@ __global__ void __launch_bounds__(NW * 32)
     cp_async_commit();
   }
 
+  // a head dim 8 past a multiple of 16 (104) takes its last 8 columns in
+  // one m16n8k8 step (TAIL): no padded columns are computed
+  constexpr bool TAIL = HD % 16 != 0;
+  constexpr int NT = HD / 8;  // n-tiles of the output (13 at 104)
   uint32_t qa[HD / 16][4];
-  float o[HD / 8][4];
+  uint32_t qt[2];
+  float o[NT][4];
   float m[2], l[2];
 
   for (int i = 0; i < total; ++i) {
@@ -206,8 +225,12 @@ __global__ void __launch_bounds__(NW * 32)
           qa[kk][2] = ld_pair(qrow + c + 8);
           qa[kk][3] = ld_pair(qrow + 8 * F::KS + c + 8);
         }
+        if constexpr (TAIL) {
+          qt[0] = ld_pair(qrow + HD - 8 + 2 * t);
+          qt[1] = ld_pair(qrow + 8 * F::KS + HD - 8 + 2 * t);
+        }
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n)
+        for (int n = 0; n < NT; ++n)
           o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
         m[0] = m[1] = -FLT_MAX;
         l[0] = l[1] = 0.f;
@@ -232,6 +255,14 @@ __global__ void __launch_bounds__(NW * 32)
                               kk * 16 + ((lane / 8) & 1) * 8);
               mma_bf16(acc[0], qa[kk], b0, b1);
               mma_bf16(acc[1], qa[kk], b2, b3);
+            }
+            if constexpr (TAIL) {  // d columns HD - 8 .. HD - 1
+              uint32_t b0, b1;
+              ldmatrix_x2(b0, b1,
+                          ks + (np * 16 + ((lane / 8) & 1) * 8 + lane % 8) *
+                                   F::KS + HD - 8);
+              mma_bf16_k8(acc[0], qt, b0);
+              mma_bf16_k8(acc[1], qt, b1);
             }
           }
 #pragma unroll
@@ -281,7 +312,7 @@ __global__ void __launch_bounds__(NW * 32)
           l[r] = l[r] * alpha[r] + rsum[r];
         }
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
+        for (int n = 0; n < NT; ++n) {
           o[n][0] *= alpha[0];
           o[n][1] *= alpha[0];
           o[n][2] *= alpha[1];
@@ -296,13 +327,19 @@ __global__ void __launch_bounds__(NW * 32)
               pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
               pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
 #pragma unroll
-          for (int n = 0; n < HD / 8; n += 2) {
+          for (int n = 0; n + 1 < NT; n += 2) {
             uint32_t vb0, vb1, vb2, vb3;  // B fragments of d-tiles n, n+1
             ldmatrix_x4_trans(
                 vb0, vb1, vb2, vb3,
                 vs + (kc * 16 + lane % 16) * F::KS + n * 8 + (lane / 16) * 8);
             mma_bf16(o[n], pa, vb0, vb1);
             mma_bf16(o[n + 1], pa, vb2, vb3);
+          }
+          if constexpr (NT % 2) {  // the last d-tile alone
+            uint32_t vb0, vb1;
+            ldmatrix_x2_trans(vb0, vb1,
+                              vs + (kc * 16 + lane % 16) * F::KS + HD - 8);
+            mma_bf16(o[NT - 1], pa, vb0, vb1);
           }
         }
       };
@@ -317,7 +354,7 @@ __global__ void __launch_bounds__(NW * 32)
         const int r1 = r0 + 8;
         __nv_bfloat16* ob = out + (long long)b * L * D + h * HD + 2 * t;
 #pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
+        for (int n = 0; n < NT; ++n) {
           if (r0 < L)
             *reinterpret_cast<uint32_t*>(ob + (long long)r0 * D + n * 8) =
                 pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
@@ -503,7 +540,7 @@ cudaError_t launch_bf16(const void* qkv, const float* mask, void* out, int B,
         break;
       }
   const dim3 grid(chunks, H / hg, B);
-  const size_t smem = F::smem(whole, mstride);
+  const size_t smem = F::smem(whole, mstride, hg);
   return whole ? launch_bf16_kernel<HD, NW, true>(grid, smem, qkv, mask, out,
                                                   L, D, hg, mstride, scale,
                                                   stream)
@@ -529,26 +566,33 @@ cudaError_t launch_f32(const void* qkv, const float* mask, void* out, int B,
 }
 
 template <int HD>
+cudaError_t launch_bf16_any(const void* qkv, const float* mask, void* out,
+                            int B, int L, int D, int H, cudaStream_t stream) {
+  const float scale = 1.f / sqrtf((float)HD);
+  // 4 warps a block, halved while the grid would leave SMs idle or a half
+  // would already cover L. At head dim 104 a block of 4 warps with a
+  // streamed mask (L 257) holds 111 KB of shared memory: two still share
+  // an SM, as at 64
+  int nw = 4;
+  while (nw > 1 && (long long)((L + 16 * nw - 1) / (16 * nw)) * H * B < SMS)
+    nw /= 2;
+  while (nw > 1 && 16 * (nw / 2) >= L) nw /= 2;
+  switch (nw) {
+    case 4:
+      return launch_bf16<HD, 4>(qkv, mask, out, B, L, D, H, scale, stream);
+    case 2:
+      return launch_bf16<HD, 2>(qkv, mask, out, B, L, D, H, scale, stream);
+    default:
+      return launch_bf16<HD, 1>(qkv, mask, out, B, L, D, H, scale, stream);
+  }
+}
+
+template <int HD>
 cudaError_t launch(const void* qkv, const float* mask, void* out, int B,
                    int L, int D, int H, int dtype, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_bf16_any<HD>(qkv, mask, out, B, L, D, H, stream);
   const float scale = 1.f / sqrtf((float)HD);
-  if (dtype == 1) {
-    // 4 warps a block, halved while the grid would leave SMs idle or a
-    // half would already cover L
-    int nw = 4;
-    while (nw > 1 &&
-           (long long)((L + 16 * nw - 1) / (16 * nw)) * H * B < SMS)
-      nw /= 2;
-    while (nw > 1 && 16 * (nw / 2) >= L) nw /= 2;
-    switch (nw) {
-      case 4:
-        return launch_bf16<HD, 4>(qkv, mask, out, B, L, D, H, scale, stream);
-      case 2:
-        return launch_bf16<HD, 2>(qkv, mask, out, B, L, D, H, scale, stream);
-      default:
-        return launch_bf16<HD, 1>(qkv, mask, out, B, L, D, H, scale, stream);
-    }
-  }
   // 64 rows whatever their padding: two 8-warp blocks an SM (at 128
   // registers) outrun 32-row blocks at every measured shape, the padded
   // warps idling (tools/kernel_variants.py `rows_pad_10`, PERF.md)
@@ -566,8 +610,8 @@ cudaError_t launch(const void* qkv, const float* mask, void* out, int B,
 
 // qkv [B, L, 3D] (dtype 0: float32, 1: bfloat16; 16-byte aligned),
 // mask [L, L] float32, out [B, L, D] of qkv's dtype; all contiguous on the
-// current device, head dim D / H in {16, 32, 64}. Returns the launch's
-// cudaError_t (0 on success); does not synchronise.
+// current device, head dim D / H in {16, 32, 64}, or 104 in bfloat16.
+// Returns the launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int mha_qkv_fwd(const void* qkv, const void* mask, void* out,
                            int B, int L, int D, int H, int dtype,
                            void* stream) {
@@ -580,6 +624,9 @@ extern "C" int mha_qkv_fwd(const void* qkv, const void* mask, void* out,
     case 16: return launch<16>(qkv, m, out, B, L, D, H, dtype, s);
     case 32: return launch<32>(qkv, m, out, B, L, D, H, dtype, s);
     case 64: return launch<64>(qkv, m, out, B, L, D, H, dtype, s);
+    case 104:
+      return dtype == 1 ? launch_bf16_any<104>(qkv, m, out, B, L, D, H, s)
+                        : cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -29,8 +29,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as _attention
-from ..ops.attention import (causal_mask, layer_norm, multi_head_attention,
-                             quick_gelu)
+from ..ops.attention import (ACTIVATIONS, causal_mask, layer_norm,
+                             multi_head_attention)
 from ..ops.quant import BLOCK_WEIGHTS, qdot
 from ..tools import profiling
 
@@ -47,17 +47,33 @@ class CLIPConfig:
     transformer_layers: int
     context_length: int = 77
     vocab_size: int = 49408
+    # OpenCLIP's towers state these; None takes OpenAI's layout, filled in
+    # on construction: heads of 64 (the ResNet attention pool: width 32 /
+    # 64), MLPs 4x their tower's width
+    vision_heads: Optional[int] = None
+    vision_mlp_width: Optional[int] = None
+    transformer_mlp_width: Optional[int] = None
+    #: the MLP's activation, ``ACTIVATIONS``
+    activation: str = "quick_gelu"
+
+    def __post_init__(self):
+        if self.activation not in ACTIVATIONS:
+            raise ValueError(f"activation {self.activation!r}; known: "
+                             f"{sorted(ACTIVATIONS)}")
+        fill = {"transformer_mlp_width": 4 * self.transformer_width}
+        if self.is_vit:
+            fill["vision_heads"] = self.vision_width // 64
+            fill["vision_mlp_width"] = 4 * self.vision_width
+        else:
+            fill["vision_heads"] = self.vision_width * 32 // 64
+        for name, value in fill.items():
+            if getattr(self, name) is None:
+                object.__setattr__(self, name, value)
 
     @property
     def is_vit(self) -> bool:
         # a ModifiedResNet tower names its four stages' depths
         return isinstance(self.vision_layers, int)
-
-    @property
-    def vision_heads(self) -> int:
-        if self.is_vit:
-            return self.vision_width // 64
-        return self.vision_width * 32 // 64
 
     @property
     def grid_size(self) -> int:
@@ -74,6 +90,11 @@ PRESETS: Dict[str, CLIPConfig] = {
     "ViT-B/32": CLIPConfig(512, 224, 12, 768, 32, 512, 8, 12),
     "ViT-L/14": CLIPConfig(768, 224, 24, 1024, 14, 768, 12, 12),
     "ViT-L/14@336px": CLIPConfig(768, 336, 24, 1024, 14, 768, 12, 12),
+    # OpenCLIP (open_clip/model_configs/ViT-bigG-14.json): heads of 104,
+    # MLP ratio 4.9231 (vision) and 4 (text), exact GELU
+    "ViT-bigG/14": CLIPConfig(1280, 224, 48, 1664, 14, 1280, 20, 32,
+                              vision_heads=16, vision_mlp_width=8192,
+                              transformer_mlp_width=5120, activation="gelu"),
     "RN50": CLIPConfig(1024, 224, (3, 4, 6, 3), 64, None, 512, 8, 12),
     "RN101": CLIPConfig(512, 224, (3, 4, 23, 3), 64, None, 512, 8, 12),
     # width and resolution scaled jointly (reference clip/clip.py:30-39)
@@ -117,23 +138,35 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, width: int, dtype, device):
+    def __init__(self, width: int, mlp_width: int, dtype, device):
         super().__init__()
-        self.w_fc = _param((width, 4 * width), dtype, device)
-        self.b_fc = _param((4 * width,), torch.float32, device)
-        self.w_proj = _param((4 * width, width), dtype, device)
+        self.w_fc = _param((width, mlp_width), dtype, device)
+        self.b_fc = _param((mlp_width,), torch.float32, device)
+        self.w_proj = _param((mlp_width, width), dtype, device)
         self.b_proj = _param((width,), torch.float32, device)
 
 
 class Block(nn.Module):
-    """One residual attention block (pre-LN, QuickGELU MLP)."""
+    """One residual attention block: pre-LN, an MLP of ``mlp_width``
+    hidden features under ``activation`` (``ops/attention.py::
+    ACTIVATIONS``; OpenAI's: 4x width, QuickGELU)."""
 
-    def __init__(self, width: int, dtype, device):
+    def __init__(self, width: int, mlp_width: int, activation: str, dtype,
+                 device):
         super().__init__()
         self.ln_1 = LayerNorm(width, device)
         self.attn = Attention(width, dtype, device)
         self.ln_2 = LayerNorm(width, device)
-        self.mlp = MLP(width, dtype, device)
+        self.mlp = MLP(width, mlp_width, dtype, device)
+        self.act = ACTIVATIONS[activation]
+
+    def _mlp(self, fc_in, w_fc, b_fc, w_proj, qmode: str, row_max=None):
+        """The activation's output ``y`` (the ``w_proj`` input) and the
+        MLP's output, each product's fp32 bias cast to the input's dtype
+        and added; ``row_max`` reduces a row-cut product's dynamic scale
+        (``_forward_tp``)."""
+        y = self.act(qdot(fc_in, w_fc, qmode) + b_fc.to(fc_in.dtype))
+        return y, qdot(y, w_proj, qmode, row_max)
 
     def forward(self, h, n_heads: int, mask, qmode: str = "dequant",
                 stats: Optional[dict] = None, tp=None):
@@ -153,8 +186,8 @@ class Block(nn.Module):
         h = h + attn
         m = self.mlp
         fc_in = self.ln_2(h)
-        y = quick_gelu(qdot(fc_in, m.w_fc, qmode) + m.b_fc.to(fc_in.dtype))
-        out = h + (qdot(y, m.w_proj, qmode) + m.b_proj.to(y.dtype))
+        y, proj = self._mlp(fc_in, m.w_fc, m.b_fc, m.w_proj, qmode)
+        out = h + (proj + m.b_proj.to(y.dtype))
         if stats is not None:
             _record_stats(stats, ln1, ctx, fc_in, y)
         return out
@@ -177,9 +210,9 @@ class Block(nn.Module):
         h = h + (tp.all_reduce(qdot(ctx, w["wo"], qmode, tp.max))
                  + self.attn.bo.to(h.dtype))
         fc_in = self.ln_2(h)
-        y = quick_gelu(qdot(fc_in, w["w_fc"], qmode) + w["b_fc"].to(h.dtype))
-        out = h + (tp.all_reduce(qdot(y, w["w_proj"], qmode, tp.max))
-                   + self.mlp.b_proj.to(h.dtype))
+        y, proj = self._mlp(fc_in, w["w_fc"], w["b_fc"], w["w_proj"], qmode,
+                            tp.max)
+        out = h + (tp.all_reduce(proj) + self.mlp.b_proj.to(h.dtype))
         if stats is not None:
             _record_stats(stats, ln1, ctx, fc_in, y, tp)
         return out
@@ -208,8 +241,9 @@ class VisionTower(nn.Module):
         self.positional_embedding = _param((cfg.vision_seq_len, vw), f32,
                                            device)
         self.ln_pre = LayerNorm(vw, device)
-        self.blocks = nn.ModuleList(Block(vw, dtype, device)
-                                    for _ in range(cfg.vision_layers))
+        self.blocks = nn.ModuleList(
+            Block(vw, cfg.vision_mlp_width, cfg.activation, dtype, device)
+            for _ in range(cfg.vision_layers))
         self.ln_post = LayerNorm(vw, device)
         self.proj = _param((vw, cfg.embed_dim), dtype, device)
 
@@ -222,8 +256,10 @@ class TextTower(nn.Module):
         self.token_embedding = _param((cfg.vocab_size, tw), f32, device)
         self.positional_embedding = _param((cfg.context_length, tw), f32,
                                            device)
-        self.blocks = nn.ModuleList(Block(tw, dtype, device)
-                                    for _ in range(cfg.transformer_layers))
+        self.blocks = nn.ModuleList(
+            Block(tw, cfg.transformer_mlp_width, cfg.activation, dtype,
+                  device)
+            for _ in range(cfg.transformer_layers))
         self.ln_final = LayerNorm(tw, device)
         self.text_projection = _param((tw, cfg.embed_dim), dtype, device)
 

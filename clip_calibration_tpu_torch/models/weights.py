@@ -206,9 +206,16 @@ def load_params(path: str) -> Dict[str, Any]:
 # torch (OpenAI) state dict import
 # ---------------------------------------------------------------------------
 
-def config_from_torch_state_dict(sd: Dict[str, np.ndarray]) -> CLIPConfig:
+def config_from_torch_state_dict(sd: Dict[str, np.ndarray],
+                                 vision_heads: Optional[int] = None,
+                                 activation: str = "quick_gelu"
+                                 ) -> CLIPConfig:
     """Infer architecture hyperparams from tensor shapes (parity with
-    reference ``build_model``, ``clip/model.py:656-680``)."""
+    reference ``build_model``, ``clip/model.py:656-680``); each tower's
+    MLP width from its first block's ``c_fc`` weight (OpenAI's 4x where
+    there is none). The vision heads (default: width / 64) and the
+    activation are not in the tensors: an OpenCLIP checkpoint, under the
+    same key names, states them in its model config."""
     if "visual.proj" in sd:
         vision_width = sd["visual.conv1.weight"].shape[0]
         vision_layers = len([k for k in sd if k.startswith("visual.")
@@ -226,6 +233,10 @@ def config_from_torch_state_dict(sd: Dict[str, np.ndarray]) -> CLIPConfig:
         image_resolution = 32 * round(
             (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
     transformer_width = sd["ln_final.weight"].shape[0]
+
+    def mlp_width(prefix):  # absent: None, 4x the tower's width
+        w = sd.get(prefix + "transformer.resblocks.0.mlp.c_fc.weight")
+        return None if w is None else w.shape[0]
     return CLIPConfig(
         embed_dim=sd["text_projection"].shape[1],
         image_resolution=image_resolution,
@@ -238,6 +249,10 @@ def config_from_torch_state_dict(sd: Dict[str, np.ndarray]) -> CLIPConfig:
                                 if k.startswith("transformer.resblocks")}),
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
+        vision_heads=vision_heads,
+        vision_mlp_width=mlp_width("visual."),
+        transformer_mlp_width=mlp_width(""),
+        activation=activation,
     )
 
 

@@ -60,3 +60,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(1.702 x) (reference QuickGELU, ``clip/model.py:162-164``)."""
     return x * torch.sigmoid(1.702 * x)
+
+
+#: the MLP activations a ``CLIPConfig`` names: OpenAI's QuickGELU and the
+#: exact (erf) GELU of OpenCLIP's towers (``nn.GELU()``)
+ACTIVATIONS = {"quick_gelu": quick_gelu,
+               "gelu": torch.nn.functional.gelu}

@@ -30,9 +30,17 @@ import ctypes
 
 import torch
 
-#: head dims the CUDA kernels are compiled for (ViT-Test: 16; every public
-#: CLIP preset: 64)
-KERNEL_HEAD_DIMS = (16, 32, 64)
+from ..tools import profiling
+
+#: head dims each CUDA kernel is compiled for, by dtype (ViT-Test: 16;
+#: OpenAI's presets and OpenCLIP's text towers: 64; OpenCLIP ViT-bigG/14's
+#: frozen vision tower: 104, forward in bf16 alone)
+KERNEL_HEAD_DIMS = {
+    ("K1", torch.bfloat16): (16, 32, 64, 104),
+    ("K1", torch.float32): (16, 32, 64),
+    ("K2", torch.bfloat16): (16, 32, 64),
+    ("K2", torch.float32): (16, 32, 64),
+}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -94,7 +102,16 @@ def bwd_route(L: int, dtype) -> str:
     return "fused_L64" if fused else "tiled"
 
 
-def _check(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int):
+def _check_head_dim(kernel: str, dtype, head_dim: int):
+    allowed = KERNEL_HEAD_DIMS[(kernel, dtype)]
+    if head_dim not in allowed:
+        raise ValueError(f"head dim {head_dim}: {kernel} "
+                         f"({str(dtype)[6:]}) is compiled for head dims "
+                         f"{allowed}")
+
+
+def _check(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
+           kernel: str):
     if not isinstance(qkv, torch.Tensor) or qkv.ndim != 3:
         raise ValueError("qkv must be a [B, L, 3D] tensor")
     B, L, D3 = qkv.shape
@@ -116,9 +133,7 @@ def _check(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int):
     if qkv.device.type not in ("cuda", "cpu"):
         raise ValueError(f"mha_qkv runs on cuda or cpu, not {qkv.device}")
     if qkv.device.type == "cuda":
-        if D3 // 3 // n_heads not in KERNEL_HEAD_DIMS:
-            raise ValueError(f"head dim {D3 // 3 // n_heads} not in "
-                             f"{KERNEL_HEAD_DIMS}")
+        _check_head_dim(kernel, qkv.dtype, D3 // 3 // n_heads)
         if qkv.data_ptr() % 16:
             raise ValueError("qkv must be 16-byte aligned (vector loads)")
 
@@ -141,6 +156,8 @@ def _forward(qkv: torch.Tensor, mask: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mha_qkv_fwd launch failed: cudaError_t {err}")
     mha_qkv.launches += 1
+    if D3 // 3 // n_heads == 104:
+        profiling.count("k1.calls.d104", 1)
     return out
 
 
@@ -148,7 +165,7 @@ def mha_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
                 n_heads: int) -> torch.Tensor:
     """K2: d(sum(out * g))/d(qkv) for out = mha_qkv(qkv, mask, n_heads).
     g [B, L, D] in qkv's dtype -> dqkv [B, L, 3D], packed like qkv."""
-    _check(qkv, mask, n_heads)
+    _check(qkv, mask, n_heads, "K2")
     B, L, D3 = qkv.shape
     if (g.dtype != qkv.dtype or tuple(g.shape) != (B, L, D3 // 3)
             or g.device != qkv.device or not g.is_contiguous()):
@@ -197,7 +214,7 @@ def mha_qkv(qkv: torch.Tensor, mask: torch.Tensor,
     """qkv [B, L, 3D] (heads not split: head h of q/k/v at columns
     h*d, D+h*d, 2D+h*d), mask [L, L] additive fp32 -> [B, L, D] with the
     heads concatenated. Differentiable in qkv."""
-    _check(qkv, mask, n_heads)
+    _check(qkv, mask, n_heads, "K1")
     return _MhaQkv.apply(qkv, mask, n_heads)
 
 

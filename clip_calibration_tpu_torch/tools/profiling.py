@@ -18,12 +18,14 @@ and ``snapshot()``. With no profiler running, a span reads
 cap); it never enters ``record_function``, takes no lock and grows
 nothing. Each name is written by one thread at a time. While a profiler
 runs (``trace``, ``TPU.PROFILE_DIR``, a benchmark's traced slice) a span
-is a ``record_function`` instead: it lands in the Chrome trace nested in
-its parent, on the kernels' clock, and nothing goes into the rings. A
-span open when a profiler starts goes into neither; one open when it
-stops goes into no ring, and the trace holds it cut at the stop (marked
-``"finished": false``). A profiler started and stopped wholly inside one
-span is not seen.
+is a ``record_function`` instead, on the thread the profiler traces (the
+one that started it): it lands in the Chrome trace nested in its parent,
+on the kernels' clock, and nothing goes into the rings; on any other
+thread it is in neither (no annotation is left open there when the
+profiler stops). A span open when a profiler starts goes into neither;
+one open when it stops goes into no ring, and the trace holds it cut at
+the stop (marked ``"finished": false``). A profiler started and stopped
+wholly inside one span is not seen.
 
 ``time_ms`` is the port's kernel timer on the card (cold inputs, CUDA
 events).
@@ -100,12 +102,18 @@ class _Span:
         self._open = []
 
     def __enter__(self) -> "_Span":
-        if _autograd_profiler._is_profiler_enabled:
+        if not _autograd_profiler._is_profiler_enabled:
+            self._open.append(time.perf_counter_ns())
+        elif torch.autograd._profiler_enabled():
             annotation = torch.profiler.record_function(self.name)
             annotation.__enter__()
             self._open.append(annotation)
         else:
-            self._open.append(time.perf_counter_ns())
+            # a thread the profiler does not trace (the serving batcher's):
+            # an annotation there would stay open across the profiler's
+            # stop on its own thread, e.g. while this thread blocks in a
+            # queue, so the use goes into neither the trace nor the ring
+            self._open.append(_CANCELLED)
         return self
 
     def __exit__(self, *exc) -> bool:

@@ -167,8 +167,11 @@ def test_converted_openai_dict_matches_golden(golden, what):
 def test_converter_matches_jax_converter(golden):
     data, model, cfg = golden
     sd = {k[3:]: data[k] for k in data.files if k.startswith("sd.")}
-    jparams, _ = JW.convert_torch_clip(sd, "float32", cfg=JM.CLIPConfig(
-        **dataclasses.asdict(cfg)))
+    # the JAX config's fields (the port's adds OpenCLIP's stated heads,
+    # MLP widths and activation, at OpenAI's values here)
+    jcfg = JM.CLIPConfig(**{f.name: getattr(cfg, f.name)
+                            for f in dataclasses.fields(JM.CLIPConfig)})
+    jparams, _ = JW.convert_torch_clip(sd, "float32", cfg=jcfg)
     want = JW.flatten_params(jparams)
     got = TW.flat_params(model)
     assert sorted(got) == sorted(want)

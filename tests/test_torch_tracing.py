@@ -117,6 +117,65 @@ def test_span_open_across_a_profiler_start_or_stop_skips_the_ring(
     assert _grown(before, name) == {name: 0}
 
 
+def test_span_blocked_on_another_thread_across_a_profiler_stop(
+        tmp_path, monkeypatch):
+    """The serving batcher's case: its thread opens a span under a
+    profiler, then blocks in its queue while the main thread stops the
+    profiler. No annotation is opened on that thread, the span exits
+    cleanly after the stop, and its ring holds what it held before; the
+    main thread's spans are in the trace as ever."""
+    import queue
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    name = "test.blocked"
+    with profiling.span(name):  # one use off any profiler
+        pass
+    before = profiling.snapshot()[name]
+    entered_on = []
+    record_function = torch.profiler.record_function
+
+    def spy(*args, **kwargs):
+        entered_on.append(threading.current_thread())
+        return record_function(*args, **kwargs)
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+
+    inbox, inside, errors = queue.Queue(), threading.Event(), []
+
+    def worker():
+        try:
+            with profiling.span(name):
+                inside.set()
+                inbox.get()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    thread = threading.Thread(target=worker)
+    thread.start()
+    assert inside.wait(10)
+    with profiling.span("test.main"):
+        pass
+    prof.stop()
+    inbox.put(None)
+    thread.join(10)
+    assert not thread.is_alive() and not errors
+    assert entered_on == [threading.main_thread()]
+    after = profiling.snapshot()[name]
+    assert after["count"] == before["count"]
+    np.testing.assert_array_equal(after["recent"], before["recent"])
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
+    assert "test.main" in names and name not in names
+    # off the profiler the thread's span times into the ring again
+    worker_again = threading.Thread(target=worker)
+    inbox.put(None)
+    worker_again.start()
+    worker_again.join(10)
+    assert profiling.snapshot()[name]["count"] == before["count"] + 1
+
+
 def _coop_trainer(tmp_path):
     from clip_calibration_tpu_torch.config import get_cfg_default
     from clip_calibration_tpu_torch.data.base import set_random_seed
