@@ -131,6 +131,22 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
    at the probe's shape and at edges (L 77 causal, L 197 unpadded, head
    dim 32, batches of 1 and 2, L 1024), with its time, the plain version's, SDPA's
    (fp32_scores only) and the bound.
+10b. ``kernel layer_norm``: the LayerNorm kernels (forward: y, mean, rstd;
+   backward: dx, alone and under autograd) against their plain versions
+   within ``LN_TOL``, bf16 and fp32, at the bigG and L/14 row shapes
+   [8704, 1664], [16000, 1280], [27200, 1024], at [32, 768] and at every
+   [rows, width, dtype] the main path launched, each with its time, the
+   plain version's, PyTorch's own ``native_layer_norm`` and its backward's
+   (a yardstick the port never calls) and the bound (bytes), and with a
+   backward that drops its xh * mean(g' xh) term shown to fail
+   ``LN_TOL``; then correctness at the port's other widths, ragged row
+   counts, widths 8 to 2048 and ln_post's strided rows, each call's
+   launches counted, and the refusal of a width off the vector loads, one
+   over 2048 and float16. Before the checks the ``layer_norm_paths`` line
+   gives each path's launches of both kernels, counted from 0 by a stand-in
+   for each launcher (the mesh ranks' from their kernels' counters), and
+   fails where a path that runs a tower on the card launched no forward,
+   or one that trains no backward.
 11. ``tower_check``: the full-width ViT-B/16 towers on the card (kernel)
    against the same weights on the CPU (plain version), fp32.
 12. ``train_check``: one CoOp loss and context gradient at full ViT-B/16
@@ -1515,10 +1531,13 @@ def mesh_worker(rank: int, port: int, out_path: str,
 def _rank_kernels():
     """Stand-ins that record K1's, K2's and K3's calls in a rank process,
     installed with the wrappers' own launch counters set to 0 (held to the
-    stand-ins' counts by ``_rank_launches``)."""
+    stand-ins' counts by ``_rank_launches``); the LayerNorm kernels'
+    counters set to 0 too."""
     from clip_calibration_tpu_torch.ops import attention
     from clip_calibration_tpu_torch.ops import int8_matmul as int8_ops
+    from clip_calibration_tpu_torch.ops import layer_norm as ln_ops
     from clip_calibration_tpu_torch.ops import mha_qkv as kernels
+    ln_ops.layer_norm.launches = ln_ops.layer_norm_bwd.launches = 0
     k1 = Recorder(kernels.mha_qkv)
     k2 = Recorder(kernels.mha_qkv_bwd)
     k3 = ShapeRecorder(int8_ops.kernel_product)
@@ -1540,7 +1559,9 @@ def _remove_kernels(k1, k2, k3) -> None:
 def _rank_launches(rank, k1, k2, k3) -> dict:
     """The kernels' own counters, which must equal the recorded calls, and
     the calls by shape (JSON): K1 and K2 as [qkv shape, heads, dtype,
-    mask key, count], K3 as [(M, K, N), route, count]."""
+    mask key, count], K3 as [(M, K, N), route, count]; the LayerNorm
+    kernels' launches (their counters alone)."""
+    from clip_calibration_tpu_torch.ops import layer_norm as ln_ops
     from clip_calibration_tpu_torch.ops.int8_matmul import int8_matmul
     counters = {"mha_qkv": k1.fn.launches, "mha_qkv_bwd": k2.fn.launches,
                 "int8_matmul": int8_matmul.launches}
@@ -1557,7 +1578,9 @@ def _rank_launches(rank, k1, k2, k3) -> dict:
                for s, h, dt, m, n in k2.calls],
         "k3": [[list(mkn), route, n] for mkn, routes in k3.calls.items()
                for route, n in routes.items()],
-        "k3_without_kmajor": k3.without_kmajor}
+        "k3_without_kmajor": k3.without_kmajor,
+        "layer_norm": {"layer_norm_fwd": ln_ops.layer_norm.launches,
+                       "layer_norm_bwd": ln_ops.layer_norm_bwd.launches}}
 
 
 def serve_worker(rank: int, port: int, out_path: str, argv,
@@ -1720,7 +1743,8 @@ def run_mesh_path(k1, k2, k3):
     ranks = [json.load(open(o)) for o in outs]
     launches = dict.fromkeys(("mha_qkv_fwd", "mha_qkv_fwd_f32",
                               "mha_qkv_bwd", "mha_qkv_bwd_f32",
-                              "int8_matmul"), 0)
+                              "int8_matmul", "layer_norm_fwd",
+                              "layer_norm_bwd"), 0)
     for res in ranks:
         n1, n2 = ({dt: sum(c[4] for c in res[k] if c[2] == dt)
                    for dt in ("bfloat16", "float32")} for k in ("k1", "k2"))
@@ -1739,6 +1763,8 @@ def run_mesh_path(k1, k2, k3):
         launches["mha_qkv_bwd"] += n2["bfloat16"]
         launches["mha_qkv_bwd_f32"] += n2["float32"]
         launches["int8_matmul"] += n3
+        for kernel, n in res["layer_norm"].items():
+            launches[kernel] += n
         emit("mesh_path", stage="two_ranks_gloo", rank=res["rank"],
              backend=res["backend"], world=res["world"],
              weights="seeded random init (no accuracy claim)",
@@ -1754,7 +1780,7 @@ def run_mesh_path(k1, k2, k3):
                                     "CoCoOp", "ProDA",
                                     "tp_predictor", "tp_predictor_int8",
                                     "tp_predictor_w8a8", "seconds",
-                                    "counters")},
+                                    "counters", "layer_norm")},
              launches={
                  "mha_qkv_fwd": {f"{s} {h} heads {dt} {m[0]}": n
                                  for s, h, dt, m, n in res["k1"]},
@@ -1769,6 +1795,8 @@ def run_mesh_path(k1, k2, k3):
     launches["mha_qkv_fwd"] += one_rank["mha_qkv_fwd"] + http["mha_qkv_fwd"]
     launches["mha_qkv_bwd"] += one_rank["mha_qkv_bwd"]
     launches["int8_matmul"] += http["int8_matmul"]
+    for kernel in ("layer_norm_fwd", "layer_norm_bwd"):
+        launches[kernel] += http[kernel]
     return launches
 
 
@@ -1811,7 +1839,7 @@ def run_mesh_http(k1, k2, k3, device="cuda") -> dict:
     within ``MESH_PROBS_ATOL``. Then SIGTERM to rank 0: both ranks
     must exit 0 within ``MESH_HTTP_EXIT_S``. Each rank's K3 launches are
     50 per image forward and its K1 launches 12 (and 12 for the class
-    prompts' text encode); their calls join the kernel checks. Returns the ranks' K1 (bf16) and K3 launches."""
+    prompts' text encode); their calls join the kernel checks. Returns the ranks' K1 (bf16), K3 and LayerNorm launches."""
     import signal
     import subprocess
     import numpy as np
@@ -1891,7 +1919,8 @@ def run_mesh_http(k1, k2, k3, device="cuda") -> dict:
             raise AssertionError(f"mesh_path http: answer {i} {row} "
                                  f"differs from one rank's")
         gaps.append(gap)
-    launches = {"mha_qkv_fwd": 0, "int8_matmul": 0}
+    launches = {"mha_qkv_fwd": 0, "int8_matmul": 0, "layer_norm_fwd": 0,
+                "layer_norm_bwd": 0}
     cfg = PRESETS["ViT-B/16"]
     per_forward = k3_per_w8a8_forward()
     for res in ranks:
@@ -1908,6 +1937,8 @@ def run_mesh_http(k1, k2, k3, device="cuda") -> dict:
                                  f"launches {c}")
         launches["mha_qkv_fwd"] += c["mha_qkv"]
         launches["int8_matmul"] += c["int8_matmul"]
+        for kernel, n in res["layer_norm"].items():
+            launches[kernel] += n
         _join_calls(res, k1, k2, k3, device)
     emit("mesh_path", stage="http_two_ranks", command="serve " + " ".join(
         argv[2:]), weights="seeded random init (no accuracy claim)",
@@ -2718,8 +2749,8 @@ def check_serve_tower(device):
     images = torch.randn((2, 224, 224, 3), generator=gen)
     products = []
 
-    def recorded(x, w, qmode="dequant"):
-        out = Q.qdot(x, w, qmode)
+    def recorded(x, w, qmode="dequant", row_amax=None):
+        out = Q.qdot(x, w, qmode, row_amax)
         products.append((x.cpu(), Q.QuantizedWeight(
             w.int8.cpu(), w.scale.cpu(), w.act_scale.cpu()), out.cpu()))
         return out
@@ -2913,6 +2944,277 @@ def check_int8_attention(device, probe_launches):
     return out
 
 
+# the LayerNorm kernels' timed shapes, [rows, width], besides those the main
+# path launched: bigG's vision rows (32 x 272) and text rows (500 x 32), the
+# L/14 eval batch's vision rows (100 x 272), and a B/16 ln_post ([32,
+# 768]); then correctness only at every other width the port runs, ragged
+# row counts and the narrowest and widest rows
+LN_TIMED = [(8704, 1664), (16000, 1280), (27200, 1024), (32, 768)]
+LN_EDGES = [(5, 64), (333, 512), (7, 640), (130, 768), (3, 8), (9, 16),
+            (17, 136), (65, 2048), (1, 1280)]
+# the LayerNorm kernels vs their plain versions, |diff| <= ATOL * max|plain|
+# + RTOL * |plain| (y and dx). Both compute in fp32 from the same inputs
+# and differ only in the order of their sums, about 1e-6 of a row's scale
+# (under ATOL); y and dx are then rounded once to x's dtype, and in bf16
+# one such rounding may flip: one bf16 step, at most 2^-7 of the value
+# (RTOL 8e-3). A backward that drops its xh * mean(g' xh) term, about
+# rstd / sqrt(D) of the gradient, is outside them (``check_layer_norm``
+# plants it at every timed shape).
+LN_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 8e-3)}
+# the kernels' fp32 mean and rstd against the plain version's: the same
+# fp32 sums in another order, |diff| <= ATOL + RTOL * |plain|
+LN_STATS_TOL = (1e-5, 1e-5)
+
+
+def ln_within(got, want, dtype_name: str):
+    """(max |got - want|, within ``LN_TOL`` and finite) for a LayerNorm
+    output ``got`` against its plain version ``want``."""
+    import torch
+    atol, rtol = LN_TOL[dtype_name]
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bound = atol * float(want.abs().max()) + rtol * want.abs()
+    return float(diff.max()), bool(torch.isfinite(got).all()) and bool(
+        (diff <= bound).all())
+
+
+def ln_dropped_term(x, scale, mean, rstd, g):
+    """The backward without its xh * mean(g' xh) term, rounded to x's
+    dtype: a planted fault that ``LN_TOL`` must reject."""
+    gs = g.float() * scale.float()
+    return (rstd * (gs - gs.mean(dim=-1, keepdim=True))).to(x.dtype)
+
+
+class LayerNormRecorder:
+    """Stands in for one LayerNorm launcher of ``ops/layer_norm.py``
+    (``_forward`` or ``layer_norm_bwd``, called as ``fn(x, ...)``) and
+    counts the launches it makes by [rows, width, dtype name] under the
+    path named by ``path``: ``calls[path][(rows, width, dtype)]``. A launch
+    is a step of ``counter.launches``, the kernel's own counter, so CPU
+    calls (the plain versions) are not counted."""
+
+    def __init__(self, fn, counter):
+        self.fn, self.counter = fn, counter
+        self.path = None
+        self.calls = {}
+
+    def __call__(self, x, *args):
+        before = self.counter.launches
+        out = self.fn(x, *args)
+        if self.counter.launches != before:
+            key = (x.numel() // x.shape[-1], x.shape[-1],
+                   str(x.dtype).split(".")[-1])
+            by_shape = self.calls.setdefault(self.path, {})
+            by_shape[key] = by_shape.get(key, 0) + 1
+        return out
+
+    def count(self, path=None) -> int:
+        return sum(n for p, by_shape in self.calls.items()
+                   if path in (None, p) for n in by_shape.values())
+
+    # the backward's launcher bumps its counter through this stand-in
+    # when the stand-in replaces it in its own module
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value: int):
+        self.fn.launches = value
+
+
+LN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd")
+#: the paths that run a tower on the card (every path but the probe's),
+#: and those that also train through one
+LN_FWD_PATHS = ("main_path", "train_path", "fp32_path", "prompt_path",
+                "fanout_path", "serve_path", "mesh_path")
+LN_BWD_PATHS = ("train_path", "fp32_path", "prompt_path", "fanout_path",
+                "mesh_path")
+
+
+def check_layer_norm_paths(ln_fwd, ln_bwd, mesh) -> dict:
+    """The LayerNorm kernels' launches by path: the stand-ins' counts in
+    this process, each path's from 0, held to the kernels' own counters;
+    ``mesh_path`` adds its rank processes' counters (``mesh``, from
+    ``run_mesh_path``), which count launches but not shapes. Fails where
+    a path that runs a tower on the card launched no forward kernel, or one
+    that trains no backward kernel: its LayerNorms left the kernels.
+    Returns {path: {kernel: launches}}."""
+    from clip_calibration_tpu_torch.ops import layer_norm as ln_ops
+    counted = (ln_fwd.count(), ln_bwd.count())
+    counters = (ln_ops.layer_norm.launches, ln_ops.layer_norm_bwd.launches)
+    paths = ("main_path", "train_path", "fp32_path", "prompt_path",
+             "fanout_path", "serve_path", "probe_path", "mesh_path")
+    by_path = {p: {"layer_norm_fwd": ln_fwd.count(p),
+                   "layer_norm_bwd": ln_bwd.count(p)} for p in paths}
+    ranks = {k: mesh[k] for k in LN_KERNELS}
+    for k in LN_KERNELS:
+        by_path["mesh_path"][k] += ranks[k]
+    missing = ([(p, "layer_norm_fwd") for p in LN_FWD_PATHS
+                if not by_path[p]["layer_norm_fwd"]]
+               + [(p, "layer_norm_bwd") for p in LN_BWD_PATHS
+                  if not by_path[p]["layer_norm_bwd"]]
+               + [("mesh ranks", k) for k in LN_KERNELS if not ranks[k]])
+    emit("layer_norm_paths", launches_by_path=by_path,
+         mesh_ranks=ranks, counted_here=counted, counters_here=counters,
+         main_path_by_shape={f"[{r}, {d}] {dt}": n for (r, d, dt), n in
+                             ln_fwd.calls.get("main_path", {}).items()},
+         missing=missing)
+    if counted != counters or missing:
+        raise AssertionError(f"LayerNorm launches: counted {counted}, the "
+                             f"kernels' counters {counters}; paths whose "
+                             f"LayerNorms left the kernels: {missing}")
+    return by_path
+
+
+def check_layer_norm(device, main_calls):
+    """The LayerNorm kernels against their plain versions, forward (y,
+    mean and rstd) and backward (dx from the same statistics), in bf16 and
+    fp32: timed at ``LN_TIMED`` in both dtypes and at every [rows, width,
+    dtype] in ``main_calls`` (the main path's forward launches) beside the
+    plain versions, PyTorch's own LayerNorm (``native_layer_norm`` and its
+    backward: a yardstick the port never calls) and the bound, with a
+    backward that drops a term shown to fail ``LN_TOL``; correct at
+    ``LN_EDGES`` and on a strided view; the launches each call made
+    counted; widths the kernel does not take refused by name."""
+    import torch
+    from clip_calibration_tpu_torch.ops.layer_norm import (
+        _forward, layer_norm, layer_norm_bwd, layer_norm_bwd_reference,
+        layer_norm_reference)
+    from clip_calibration_tpu_torch.tools.profiling import (L2_FLUSH_BYTES,
+                                                            time_ms)
+    aten = torch.ops.aten
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def inputs(shape, dtype):
+        D = shape[-1]
+        # a residual stream: rows off zero, and the scale near 1
+        x = (3 * torch.randn(shape, generator=gen, device=device)
+             + torch.randn(shape[:-1] + (1,), generator=gen,
+                           device=device)).to(dtype)
+        g = torch.randn(x.shape, generator=gen, device=device).to(dtype)
+        scale = 1 + 0.1 * torch.randn(D, generator=gen, device=device)
+        bias = 0.1 * torch.randn(D, generator=gen, device=device)
+        return x, g, scale, bias
+
+    def compare(x, g, scale, bias):
+        """(max |err| of y, mean, rstd and dx, all within tolerance and
+        finite, the launches counted): the forward kernel alone and under
+        autograd, the backward kernel from the plain statistics and under
+        autograd from its own."""
+        dname = str(x.dtype)[6:]
+        f0, b0 = layer_norm.launches, layer_norm_bwd.launches
+        got, kmean, krstd = _forward(x, scale, bias, 1e-5)
+        y, mean, rstd = layer_norm_reference(x, scale, bias)
+        dx = layer_norm_bwd(x, scale, mean, rstd, g)
+        xg = x.detach().requires_grad_()
+        got_dx, = torch.autograd.grad(layer_norm(xg, scale, bias), xg, g)
+        torch.cuda.synchronize()
+        counted = (layer_norm.launches - f0, layer_norm_bwd.launches - b0)
+        want_dx = layer_norm_bwd_reference(x, scale, mean, rstd, g)
+        errs, ok = {}, counted == (2, 2)
+        for name, a, b in (("y", got, y), ("dx", dx, want_dx),
+                           ("dx_autograd", got_dx, want_dx)):
+            errs[name], within = ln_within(a, b, dname)
+            ok = ok and within
+        atol, rtol = LN_STATS_TOL
+        for name, a, b in (("mean", kmean, mean), ("rstd", krstd, rstd)):
+            diff = (a - b).abs()
+            errs[name] = float(diff.max())
+            ok = ok and bool(torch.isfinite(a).all()) and bool(
+                (diff <= atol + rtol * b.abs()).all())
+        return errs, ok, counted
+
+    timed_cases = [(rows, D, dtype) for rows, D in LN_TIMED
+                   for dtype in (torch.bfloat16, torch.float32)]
+    timed_cases += [(rows, D, getattr(torch, dname))
+                    for rows, D, dname in main_calls
+                    if (rows, D) not in LN_TIMED]
+    cases = []
+    for rows, D, dtype in timed_cases:
+        dname = str(dtype)[6:]
+        x, g, scale, bias = inputs((rows, D), dtype)
+        errs, ok, counted = compare(x, g, scale, bias)
+        _, mean, rstd = layer_norm_reference(x, scale, bias)
+        planted, caught = ln_within(
+            ln_dropped_term(x, scale, mean, rstd, g),
+            layer_norm_bwd_reference(x, scale, mean, rstd, g), dname)
+        elt = x.element_size()
+        fwd_bytes = 2 * rows * D * elt + 2 * D * 4 + 8 * rows
+        bwd_bytes = 3 * rows * D * elt + D * 4 + 8 * rows
+        w, b = scale.to(dtype), bias.to(dtype)
+        _, lmean, lrstd = aten.native_layer_norm(x, [D], w, b, 1e-5)
+        rec = {
+            "rows": rows, "width": D, "dtype": dname,
+            "main_path_launches": main_calls.get((rows, D, dname), 0),
+            "launches_counted": counted,
+            "max_abs_err": errs["y"], "max_abs_err_bwd": errs["dx"],
+            "max_abs_err_stats": [errs["mean"], errs["rstd"]],
+            "max_abs_err_bwd_autograd": errs["dx_autograd"],
+            "atol_of_max": LN_TOL[dname][0], "rtol": LN_TOL[dname][1],
+            "planted_term_drop": {"max_abs_err": planted,
+                                  "rejected": not caught},
+            "ok": ok and not caught,
+            "ms": time_ms(lambda: layer_norm(x, scale, bias), flush),
+            "plain_ms": time_ms(
+                lambda: layer_norm_reference(x, scale, bias), flush),
+            "library_ms": time_ms(
+                lambda: aten.native_layer_norm(x, [D], w, b, 1e-5), flush),
+            "bound_ms": fwd_bytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": fwd_bytes,
+            "bwd": {
+                "ms": time_ms(lambda: layer_norm_bwd(
+                    x, scale, mean, rstd, g), flush),
+                "plain_ms": time_ms(lambda: layer_norm_bwd_reference(
+                    x, scale, mean, rstd, g), flush),
+                "library_ms": time_ms(
+                    lambda: aten.native_layer_norm_backward(
+                        g, x, [D], lmean, lrstd, w, b,
+                        [True, False, False]), flush),
+                "bound_ms": bwd_bytes / PEAK_BYTES_PER_S * 1e3,
+                "bytes": bwd_bytes},
+        }
+        emit("kernel layer_norm", **rec)
+        if not rec["ok"]:
+            raise AssertionError(
+                f"layer_norm disagrees with its plain version, or its "
+                f"tolerance let a dropped term through: {rec}")
+        cases.append(rec)
+    del flush
+
+    errors = []
+    for shape in LN_EDGES + [(3, 77, 512)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g, scale, bias = inputs(shape, dtype)
+            if len(shape) == 3:  # ln_post's rows: x[:, 0] of [B, L, D]
+                x, g = x[:, 0], g[:, 0]
+            errs, ok, counted = compare(x, g, scale, bias)
+            errors.append({"shape": list(x.shape),
+                           "strided": not x.is_contiguous(),
+                           "dtype": str(dtype)[6:], **errs,
+                           "launches_counted": counted, "ok": ok})
+    refused = []
+    for D, dtype in ((12, torch.bfloat16), (2056, torch.float32),
+                     (64, torch.float16)):
+        x = torch.zeros((4, D), dtype=dtype, device=device)
+        try:
+            layer_norm(x, torch.ones(D, device=device),
+                       torch.zeros(D, device=device))
+            said = None
+        except (ValueError, TypeError) as e:
+            said = str(e)
+        refused.append({"width": D, "dtype": str(dtype)[6:], "error": said,
+                        "ok": said is not None and (
+                            str(D) in said or "float16" in said)})
+    emit("kernel layer_norm edges", cases=errors, refused=refused)
+    if not all(e["ok"] for e in errors + refused):
+        raise AssertionError("layer_norm disagrees with its plain version "
+                             "at an edge shape, or ran a width or dtype it "
+                             "does not take")
+    return cases
+
+
 def _kernel_entry(name, source, replaces, launches, cases, **extra):
     # the top-level numbers: the case the main path launched most often,
     # ties going to the one that moves the most bytes
@@ -2981,6 +3283,7 @@ def main() -> int:
 
     from clip_calibration_tpu_torch.ops import attention, build
     from clip_calibration_tpu_torch.ops import int8_matmul as int8_ops
+    from clip_calibration_tpu_torch.ops import layer_norm as ln_ops
     from clip_calibration_tpu_torch.ops import mha_qkv as kernels
     seconds = build.build()
     ptxas = {name: build.ptxas_report(name) for name in build.SOURCES
@@ -2989,10 +3292,12 @@ def main() -> int:
             for name in ("mha_qkv_fwd", "mha_qkv_bwd")}
     emit("build", seconds=seconds, kernels=sorted(build.SOURCES),
          ptxas=ptxas, fp32_sass_hmma=hmma)
-    # no fp32 attention instance and no instance of K2 or K3 may spill
+    # no fp32 attention instance and no instance of K2, K3 or LayerNorm
+    # may spill
     spilled = [fn for name, report in ptxas.items()
                for fn, r in report.items() if r["spill_bytes"] and (
-                   "_f32<" in fn or name in ("mha_qkv_bwd", "int8_matmul"))]
+                   "_f32<" in fn or name in ("mha_qkv_bwd", "int8_matmul",
+                                             "layer_norm"))]
     if spilled or not all(counts and not any(counts.values())
                           for counts in hmma.values()) or not all(
             any("_f32<" in fn for fn in ptxas.get(n, {})) for n in hmma):
@@ -3010,25 +3315,37 @@ def main() -> int:
     k1 = Recorder(kernels.mha_qkv)
     k2 = Recorder(kernels.mha_qkv_bwd)
     k3 = ShapeRecorder(int8_ops.kernel_product)
+    # the LayerNorm launchers, counted by path from 0
+    ln_fwd = LayerNormRecorder(ln_ops._forward, ln_ops.layer_norm)
+    ln_bwd = LayerNormRecorder(ln_ops.layer_norm_bwd, ln_ops.layer_norm_bwd)
+    ln_ops.layer_norm.launches = ln_ops.layer_norm_bwd.launches = 0
     old_cwd = os.getcwd()
     os.chdir(WORK)  # the ./temp feature caches are cwd-relative
     attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
         k1, k2, k3
+    ln_ops._forward, ln_ops.layer_norm_bwd = ln_fwd, ln_bwd
+
+    def on(path, run, *args):
+        ln_fwd.path = ln_bwd.path = path
+        return run(*args)
+
     try:
-        k1_main = run_main_path(k1)
-        k1_train, k2_train = run_train_path(k1, k2)
-        k1_fp32, k2_fp32 = run_fp32_path(k1, k2)
-        prompt = run_prompt_path(k1, k2)
-        fanout = run_fanout_path(k1, k2, k3)
-        k1_serve, k3_serve = run_serve_path(k1, k3)
-        k4_probe, probe_rows = run_probe_path()
-        mesh = run_mesh_path(k1, k2, k3)
+        k1_main = on("main_path", run_main_path, k1)
+        k1_train, k2_train = on("train_path", run_train_path, k1, k2)
+        k1_fp32, k2_fp32 = on("fp32_path", run_fp32_path, k1, k2)
+        prompt = on("prompt_path", run_prompt_path, k1, k2)
+        fanout = on("fanout_path", run_fanout_path, k1, k2, k3)
+        k1_serve, k3_serve = on("serve_path", run_serve_path, k1, k3)
+        k4_probe, probe_rows = on("probe_path", run_probe_path)
+        mesh = on("mesh_path", run_mesh_path, k1, k2, k3)
     finally:
         attention.mha_qkv, kernels.mha_qkv_bwd, int8_ops.kernel_product = \
             k1.fn, k2.fn, k3.fn
+        ln_ops._forward, ln_ops.layer_norm_bwd = ln_fwd.fn, ln_bwd.fn
         os.chdir(old_cwd)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    ln_by_path = check_layer_norm_paths(ln_fwd, ln_bwd, mesh)
 
     seconds = {}
 
@@ -3060,6 +3377,8 @@ def main() -> int:
                                  f"TP shape {mkn}")
     cases_k4 = timed(check_int8_attention, device,
                      {r["variant"]: r["launches"] for r in probe_rows})
+    cases_ln = timed(check_layer_norm, device,
+                     ln_fwd.calls.get("main_path", {}))
     timed(check_towers, device)
     timed(check_train_step, device)
     timed(check_prompt_step, device)
@@ -3143,6 +3462,16 @@ def main() -> int:
                 "main_path_launches", "max_abs_err", "ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by")}
                 for c in cases_k4 if c["main_path_launches"]}),
+        _kernel_entry(
+            "layer_norm", "clip_calibration_tpu_torch/csrc/layer_norm.cu",
+            "none (XLA fuses the JAX package's LayerNorm)",
+            sum(sum(by.values()) for by in ln_by_path.values()),
+            of(cases_ln, "bfloat16"), dtype="bfloat16",
+            launches_by_path={p: sum(by.values())
+                              for p, by in ln_by_path.items()},
+            launches_by_kernel={k: sum(by[k] for by in ln_by_path.values())
+                                for k in LN_KERNELS},
+            fp32_cases=of(cases_ln, "float32")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ Batch-first [B, L, D] end to end. The QKV projection is one fused
 attention ``ops/mha_qkv.py`` (kernel K1 on the card): heads are never
 split or transposed in device memory. Softmax and LayerNorm run in fp32
 whatever the compute dtype (reference fp16-safe LayerNorm,
-``clip/model.py:153-159``).
+``clip/model.py:153-159``); ``layer_norm`` is ``ops/layer_norm.py``'s
+(one kernel forward and one backward on the card).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from .layer_norm import layer_norm  # noqa: F401  (the towers' LayerNorm)
 from .mha_qkv import mha_qkv
 from .quant import qdot
 
@@ -45,16 +47,6 @@ def multi_head_attention(x: torch.Tensor, wqkv, bqkv: torch.Tensor, wo,
     out = mha_qkv(qkv.contiguous(), mask.float().contiguous(), n_heads)
     final = qdot(out, wo, qmode) + bo.to(x.dtype)
     return (final, out) if return_ctx else final
-
-
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm computed in fp32 regardless of input dtype, cast back."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,8 @@ BUILD_DIR = osp.join(osp.dirname(PKG_DIR), "build",
 SOURCES = {"mha_qkv_fwd": "mha_qkv_fwd.cu",
            "mha_qkv_bwd": "mha_qkv_bwd.cu",
            "int8_matmul": "int8_matmul.cu",
-           "int8_attention": "int8_attention.cu"}
+           "int8_attention": "int8_attention.cu",
+           "layer_norm": "layer_norm.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -63,7 +64,8 @@ def log_path(name: str) -> str:
 def _kernel_name(mangled: str) -> str:
     """``..15mha_qkv_fwd_f32ILi64ELi32EE..`` -> ``mha_qkv_fwd_f32<64, 32>``
     (the kernel and its integer or bool template arguments)."""
-    m = re.search(r"(?<=\d)((?:mha|int8)_\w*?)(?:I((?:L[a-z]+\d+E)+)E|E)",
+    m = re.search(r"(?<=\d)((?:mha|int8|layer_norm)_\w*?)"
+                  r"(?:I((?:L[a-z]+\d+E)+)E|E)",
                   mangled)
     if m is None:
         return mangled

@@ -136,7 +136,8 @@ def test_interpret_prompt_prints_the_jax_scripts_lines(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["mha_qkv_fwd", "mha_qkv_bwd",
-                                  "int8_matmul", "int8_attention"])
+                                  "int8_matmul", "int8_attention",
+                                  "layer_norm"])
 def test_build_is_stale_when_a_shared_header_changes(tmp_path, monkeypatch,
                                                      name):
     """``ops/build.py`` rebuilds a kernel whose library is older than its
