@@ -29,8 +29,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as _attention
-from ..ops.attention import (ACTIVATIONS, causal_mask, layer_norm,
-                             multi_head_attention)
+from ..ops.attention import (ACTIVATIONS, biased_qdot, causal_mask,
+                             layer_norm)
 from ..ops.quant import BLOCK_WEIGHTS, qdot
 from ..tools import profiling
 
@@ -160,59 +160,37 @@ class Block(nn.Module):
         self.mlp = MLP(width, mlp_width, dtype, device)
         self.act = ACTIVATIONS[activation]
 
-    def _mlp(self, fc_in, w_fc, b_fc, w_proj, qmode: str, row_max=None):
-        """The activation's output ``y`` (the ``w_proj`` input) and the
-        MLP's output, each product's fp32 bias cast to the input's dtype
-        and added; ``row_max`` reduces a row-cut product's dynamic scale
-        (``_forward_tp``)."""
-        y = self.act(qdot(fc_in, w_fc, qmode) + b_fc.to(fc_in.dtype))
-        return y, qdot(y, w_proj, qmode, row_max)
-
     def forward(self, h, n_heads: int, mask, qmode: str = "dequant",
                 stats: Optional[dict] = None, tp=None):
-        """``qmode``: how int8 weights run (``ops/quant.py::qdot``; plain
-        weights ignore it). ``stats``: when given, the absmax over the
-        first ``stats["real_len"]`` tokens of each quantized-matmul input
-        is appended to ``stats[(outer, key)]``. ``tp``: a
-        ``parallel/tp.py::TowerTP``: this rank's heads and hidden
-        features, the two partial products summed over the model ranks."""
-        if tp is not None:
-            return self._forward_tp(h, n_heads, mask, tp, qmode, stats)
-        a = self.attn
+        """mask: [L, L] additive fp32, contiguous (``transformer``'s one
+        tensor for every layer). ``qmode``: how int8 weights run
+        (``ops/quant.py::qdot``). ``stats``: when given, the absmax over
+        the first ``stats["real_len"]`` tokens of each quantized-matmul
+        input is appended to ``stats[(outer, key)]``. ``tp``: a
+        ``parallel/tp.py::TowerTP``: this rank's heads and weight slices
+        (``tp.block``); the row cuts' (``wo``, ``w_proj``) partial products
+        summed by ``tp.all_reduce`` before their bias, their dynamic
+        activation scales from the whole row's absmax (``tp.max``)."""
+        a, m = self.attn, self.mlp
+        if tp is None:
+            w = {"wqkv": a.wqkv, "bqkv": a.bqkv, "wo": a.wo,
+                 "w_fc": m.w_fc, "b_fc": m.b_fc, "w_proj": m.w_proj}
+            row_amax = reduce = None
+        else:
+            w, n_heads = tp.block(self), tp.heads(n_heads)
+            row_amax, reduce = tp.max, tp.all_reduce
         ln1 = self.ln_1(h)
-        attn, ctx = multi_head_attention(ln1, a.wqkv, a.bqkv, a.wo, a.bo,
-                                         n_heads, mask, qmode=qmode,
-                                         return_ctx=True)
-        h = h + attn
-        m = self.mlp
+        # the fused attention (K1), looked up at call time: tracing
+        # replaces the module's entry point. No name holds qkv, so outside
+        # autograd it is freed once K1 has read it (the tower's peak memory)
+        ctx = _attention.mha_qkv(
+            biased_qdot(ln1, w["wqkv"], w["bqkv"], qmode).contiguous(), mask,
+            n_heads)
+        h = h + biased_qdot(ctx, w["wo"], a.bo, qmode, row_amax, reduce)
         fc_in = self.ln_2(h)
-        y, proj = self._mlp(fc_in, m.w_fc, m.b_fc, m.w_proj, qmode)
-        out = h + (proj + m.b_proj.to(y.dtype))
-        if stats is not None:
-            _record_stats(stats, ln1, ctx, fc_in, y)
-        return out
-
-    def _forward_tp(self, h, n_heads: int, mask, tp, qmode: str,
-                    stats: Optional[dict]):
-        """This rank's slices (``tp.block``): ``wqkv`` and ``w_fc`` by
-        columns on the whole input rows, ``wo`` and ``w_proj`` by rows on
-        this rank's features, their partial products summed by
-        ``tp.all_reduce``; a dynamic activation scale of those two takes
-        the whole row's absmax (``tp.max``)."""
-        w = tp.block(self)
-        ln1 = self.ln_1(h)
-        qkv = qdot(ln1, w["wqkv"], qmode) + w["bqkv"].to(h.dtype)
-        # the fused attention (K1) on this rank's heads, looked up at call
-        # time as multi_head_attention does
-        ctx = _attention.mha_qkv(qkv.contiguous(),
-                                 mask.float().contiguous(),
-                                 tp.heads(n_heads))
-        h = h + (tp.all_reduce(qdot(ctx, w["wo"], qmode, tp.max))
-                 + self.attn.bo.to(h.dtype))
-        fc_in = self.ln_2(h)
-        y, proj = self._mlp(fc_in, w["w_fc"], w["b_fc"], w["w_proj"], qmode,
-                            tp.max)
-        out = h + (tp.all_reduce(proj) + self.mlp.b_proj.to(h.dtype))
+        y = self.act(biased_qdot(fc_in, w["w_fc"], w["b_fc"], qmode))
+        out = h + biased_qdot(y, w["w_proj"], m.b_proj, qmode, row_amax,
+                              reduce)
         if stats is not None:
             _record_stats(stats, ln1, ctx, fc_in, y, tp)
         return out
@@ -390,6 +368,8 @@ def transformer(blocks: nn.ModuleList, x: torch.Tensor, n_heads: int,
         mask = full
     elif mask is None:
         mask = torch.zeros((L, L), dtype=torch.float32, device=x.device)
+    else:
+        mask = mask.float().contiguous()
     stats = None
     if collect_act_stats:
         stats = {"real_len": L, **{(o, k): [] for o, k in BLOCK_WEIGHTS}}

@@ -30,6 +30,18 @@ def causal_mask(length: int, device=None,
                                  device=device), diagonal=1)
 
 
+def biased_qdot(x: torch.Tensor, w, b: torch.Tensor, qmode: str = "dequant",
+                row_amax=None, reduce=None) -> torch.Tensor:
+    """The towers' biased product: ``qdot(x, w, qmode, row_amax)``
+    (``ops/quant.py``), summed by ``reduce`` when given (the model ranks'
+    partial products of a row-cut weight, ``parallel/tp.py``), then the
+    fp32 bias ``b`` cast to x's dtype added."""
+    y = qdot(x, w, qmode, row_amax)
+    if reduce is not None:
+        y = reduce(y)
+    return y + b.to(x.dtype)
+
+
 def multi_head_attention(x: torch.Tensor, wqkv, bqkv: torch.Tensor, wo,
                          bo: torch.Tensor, n_heads: int,
                          mask: Optional[torch.Tensor] = None,
@@ -40,13 +52,13 @@ def multi_head_attention(x: torch.Tensor, wqkv, bqkv: torch.Tensor, wo,
     attention itself stays float); mask [L, L] additive fp32 (zeros when
     None). ``return_ctx`` also returns the context [B, L, D] that feeds
     ``wo`` (the activation-scale calibration site)."""
-    L = x.shape[1]
-    qkv = qdot(x, wqkv, qmode) + bqkv.to(x.dtype)
     if mask is None:
+        L = x.shape[1]
         mask = torch.zeros((L, L), dtype=torch.float32, device=x.device)
-    out = mha_qkv(qkv.contiguous(), mask.float().contiguous(), n_heads)
-    final = qdot(out, wo, qmode) + bo.to(x.dtype)
-    return (final, out) if return_ctx else final
+    qkv = biased_qdot(x, wqkv, bqkv, qmode)
+    ctx = mha_qkv(qkv.contiguous(), mask.float().contiguous(), n_heads)
+    final = biased_qdot(ctx, wo, bo, qmode)
+    return (final, ctx) if return_ctx else final
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,9 @@ root, all sources at once (one ``nvcc`` process each, started
 together). A library is rebuilt when its source, or any shared header
 ``csrc/*.cuh``, is newer. A failed build
 raises with the compiler's output; nothing falls back.
+
+``load`` also binds the C ABI, once, from the table each kernel's module
+keeps (``ARGTYPES``: library -> entry point -> ctypes argument types).
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import re
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, List
+
+import torch
 
 PKG_DIR = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC_DIR = osp.join(PKG_DIR, "csrc")
@@ -142,11 +147,35 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if it is stale."""
+def bind(lib: ctypes.CDLL, argtypes: Dict[str, List]) -> ctypes.CDLL:
+    """``lib`` with each C entry point of ``argtypes`` (entry -> ctypes
+    argument types; pointers as ``c_void_p``, or ctypes would cut them to
+    32-bit ints) typed, returning an int."""
+    for entry, types in argtypes.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def load(name: str, argtypes: Dict[str, Dict[str, List]]) -> ctypes.CDLL:
+    """The kernel's shared library, built first if it is stale, its entry
+    points bound at first load to ``argtypes[name]`` (the kernel module's
+    ``ARGTYPES``)."""
     lib = _loaded.get(name)
     if lib is None:
         build()
-        lib = ctypes.CDLL(library_path(name))
-        _loaded[name] = lib
+        lib = _loaded[name] = bind(ctypes.CDLL(library_path(name)),
+                                   argtypes[name])
     return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the launchers take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(entry: str, err: int) -> None:
+    """Raises when a launcher returned a ``cudaError_t`` other than 0."""
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")

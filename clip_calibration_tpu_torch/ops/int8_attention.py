@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from . import build
+
 VARIANTS = ("fp32_scores", "int8_qk", "int8_qk_pv")
 #: head dims the CUDA kernel is compiled for (ViT-B/16 and every larger
 #: CLIP preset: 64)
@@ -146,12 +148,10 @@ def int8_attention(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
     B, L, D3 = qkv.shape
     out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        err = _library().int8_attention(
+        err = build.load("int8_attention", ARGTYPES).int8_attention(
             qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), B, L, D3 // 3,
-            n_heads, VARIANTS.index(variant),
-            torch.cuda.current_stream(qkv.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8_attention launch failed: cudaError_t {err}")
+            n_heads, VARIANTS.index(variant), build.stream(qkv))
+    build.check("int8_attention", err)
     int8_attention.launches += 1
     return out
 
@@ -161,11 +161,7 @@ def int8_attention(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
 int8_attention.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("int8_attention")
-    if lib.int8_attention.argtypes is None:
-        lib.int8_attention.argtypes = [ctypes.c_void_p] * 3 \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.int8_attention.restype = ctypes.c_int
-    return lib
+#: the library's C entry point (``ops/build.py::load``)
+ARGTYPES = {"int8_attention": {
+    "int8_attention": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p]}}

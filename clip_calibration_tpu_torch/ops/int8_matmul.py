@@ -29,6 +29,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import build
+
 #: the output dtypes the rescaled epilogue writes, as the kernel's codes
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,7 +90,7 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, w_t: torch.Tensor,
     pad = -K % 16
     x, w_t = _operand(x, pad), _operand(w_t, pad)
     K += pad
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = build.stream(x)
     rescaled = xs is not None
     if rescaled:
         if dtype not in _OUT_CODES:
@@ -113,8 +115,7 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, w_t: torch.Tensor,
         out = torch.empty((M, N), dtype=torch.int32, device=x.device)
         err = lib.int8_matmul(x.data_ptr(), w_t.data_ptr(), out.data_ptr(),
                               M, N, K, stream)
-    if err != 0:
-        raise RuntimeError(f"int8_matmul launch failed: cudaError_t {err}")
+    build.check("int8_matmul", err)
     return out
 
 
@@ -123,7 +124,8 @@ def k3_route(M: int, N: int, K: int, rescaled: bool) -> str:
     the library): ``split_k`` (K split across blocks, int32 atomics; a
     rescaled product then the elementwise rescale), ``rescaled`` (the
     rescale in the epilogue) or ``int32``."""
-    if _library().int8_matmul_split(M, N, K + -K % 16) > 1:
+    lib = build.load("int8_matmul", ARGTYPES)
+    if lib.int8_matmul_split(M, N, K + -K % 16) > 1:
         return "split_k"
     return "rescaled" if rescaled else "int32"
 
@@ -143,7 +145,8 @@ def kernel_product(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"w_t {tuple(w_t.shape)} {w_t.dtype} on "
                          f"{w_t.device} is not the contiguous K-major copy "
                          f"of w {tuple(w.shape)}")
-    out = launch(_library(), x, w_t, xs, w_scale, dtype)
+    out = launch(build.load("int8_matmul", ARGTYPES), x, w_t, xs, w_scale,
+                 dtype)
     int8_matmul.launches += 1
     return out
 
@@ -192,23 +195,12 @@ def rescaled_int8_matmul(xq: torch.Tensor, xs: torch.Tensor,
     return out.reshape(*lead, w_q.shape[-1])
 
 
-def _library() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("int8_matmul")
-    if lib.int8_matmul.argtypes is None:
-        for name, types in ARGTYPES.items():
-            getattr(lib, name).argtypes = types
-            getattr(lib, name).restype = ctypes.c_int
-    return lib
-
-
-#: the C entry points of csrc/int8_matmul.cu (pointers as c_void_p, or
-#: ctypes would cut them to 32-bit ints)
-ARGTYPES = {
+#: the library's C entry points (``ops/build.py::load``)
+ARGTYPES = {"int8_matmul": {
     "int8_matmul_split": [ctypes.c_int] * 3,
     "int8_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
     "int8_matmul_rescaled": [ctypes.c_void_p] * 3 + [ctypes.c_int]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-}
+}}

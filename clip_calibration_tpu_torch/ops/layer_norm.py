@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from ..tools import profiling
+from . import build
 
 #: elements a vector load takes: a width must be a multiple of it
 VECTOR = 8
@@ -107,10 +108,6 @@ def _params(*ts: torch.Tensor):
     return out
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              eps: float):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor:
@@ -126,12 +123,11 @@ def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     x2 = _rows(x)
     gamma, beta = _params(scale, bias)
     with torch.cuda.device(x.device):
-        err = _library().layer_norm_fwd(
+        err = build.load("layer_norm", ARGTYPES).layer_norm_fwd(
             x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), x2.shape[0],
-            x2.shape[1], eps, _DTYPE_CODES[x.dtype], _stream(x))
-    if err != 0:
-        raise RuntimeError(f"layer_norm_fwd launch failed: cudaError_t {err}")
+            x2.shape[1], eps, _DTYPE_CODES[x.dtype], build.stream(x))
+    build.check("layer_norm_fwd", err)
     layer_norm.launches += 1
     profiling.count("ln.calls", 1)
     return y, mean, rstd
@@ -150,12 +146,11 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     x2, g2 = _rows(x), _rows(g.to(x.dtype))
     (gamma,) = _params(scale)
     with torch.cuda.device(x.device):
-        err = _library().layer_norm_bwd(
+        err = build.load("layer_norm", ARGTYPES).layer_norm_bwd(
             x2.data_ptr(), g2.data_ptr(), gamma.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), x2.shape[0],
-            x2.shape[1], _DTYPE_CODES[x.dtype], _stream(x))
-    if err != 0:
-        raise RuntimeError(f"layer_norm_bwd launch failed: cudaError_t {err}")
+            x2.shape[1], _DTYPE_CODES[x.dtype], build.stream(x))
+    build.check("layer_norm_bwd", err)
     layer_norm_bwd.launches += 1
     profiling.count("ln.calls", 1)
     return dx
@@ -202,20 +197,10 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 layer_norm.launches = 0
 layer_norm_bwd.launches = 0
 
-_ARGTYPES = {
+#: the library's C entry points (``ops/build.py::load``)
+ARGTYPES = {"layer_norm": {
     "layer_norm_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "layer_norm_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
-}
-
-
-def _library() -> ctypes.CDLL:
-    from . import build
-    lib = build.load("layer_norm")
-    for fn_name, types in _ARGTYPES.items():
-        fn = getattr(lib, fn_name)
-        if fn.argtypes is None:
-            fn.argtypes = types
-            fn.restype = ctypes.c_int
-    return lib
+}}

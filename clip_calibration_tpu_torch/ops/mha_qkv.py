@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from ..tools import profiling
+from . import build
 
 #: head dims each CUDA kernel is compiled for, by dtype (ViT-Test: 16;
 #: OpenAI's presets and OpenCLIP's text towers: 64; OpenCLIP ViT-bigG/14's
@@ -97,8 +98,8 @@ def bwd_route(L: int, dtype) -> str:
     """The route K2's launcher takes on the card (it builds the library):
     ``fused_L64`` (bf16 at L <= 64: one kernel, whole rows in shared
     memory) or ``tiled`` (the dq and dk/dv kernels; fp32 at every L)."""
-    fused = _library("mha_qkv_bwd").mha_qkv_bwd_fused(L,
-                                                      _DTYPE_CODES[dtype])
+    fused = build.load("mha_qkv_bwd", ARGTYPES).mha_qkv_bwd_fused(
+        L, _DTYPE_CODES[dtype])
     return "fused_L64" if fused else "tiled"
 
 
@@ -138,10 +139,6 @@ def _check(qkv: torch.Tensor, mask: torch.Tensor, n_heads: int,
             raise ValueError("qkv must be 16-byte aligned (vector loads)")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _forward(qkv: torch.Tensor, mask: torch.Tensor,
              n_heads: int) -> torch.Tensor:
     """K1 on a CUDA tensor, the plain version on a CPU tensor."""
@@ -150,11 +147,10 @@ def _forward(qkv: torch.Tensor, mask: torch.Tensor,
     B, L, D3 = qkv.shape
     out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        err = _library("mha_qkv_fwd").mha_qkv_fwd(
+        err = build.load("mha_qkv_fwd", ARGTYPES).mha_qkv_fwd(
             qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), B, L, D3 // 3,
-            n_heads, _DTYPE_CODES[qkv.dtype], _stream(qkv))
-    if err != 0:
-        raise RuntimeError(f"mha_qkv_fwd launch failed: cudaError_t {err}")
+            n_heads, _DTYPE_CODES[qkv.dtype], build.stream(qkv))
+    build.check("mha_qkv_fwd", err)
     mha_qkv.launches += 1
     if D3 // 3 // n_heads == 104:
         profiling.count("k1.calls.d104", 1)
@@ -181,12 +177,11 @@ def mha_qkv_bwd(qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
     stats = torch.empty((3, B, n_heads, L), dtype=torch.float32,
                         device=qkv.device)
     with torch.cuda.device(qkv.device):
-        err = _library("mha_qkv_bwd").mha_qkv_bwd(
+        err = build.load("mha_qkv_bwd", ARGTYPES).mha_qkv_bwd(
             qkv.data_ptr(), mask.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
             stats.data_ptr(), B, L, D3 // 3, n_heads,
-            _DTYPE_CODES[qkv.dtype], _stream(qkv))
-    if err != 0:
-        raise RuntimeError(f"mha_qkv_bwd launch failed: cudaError_t {err}")
+            _DTYPE_CODES[qkv.dtype], build.stream(qkv))
+    build.check("mha_qkv_bwd", err)
     mha_qkv_bwd.launches += 1
     return dqkv
 
@@ -223,22 +218,11 @@ def mha_qkv(qkv: torch.Tensor, mask: torch.Tensor,
 mha_qkv.launches = 0
 mha_qkv_bwd.launches = 0
 
-#: each library's C entry points
-_ARGTYPES = {
+#: each library's C entry points (``ops/build.py::load``)
+ARGTYPES = {
     "mha_qkv_fwd": {"mha_qkv_fwd": [ctypes.c_void_p] * 3
                     + [ctypes.c_int] * 5 + [ctypes.c_void_p]},
     "mha_qkv_bwd": {"mha_qkv_bwd": [ctypes.c_void_p] * 5
                     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
                     "mha_qkv_bwd_fused": [ctypes.c_int] * 2},
 }
-
-
-def _library(name: str) -> ctypes.CDLL:
-    from . import build
-    lib = build.load(name)
-    for fn_name, types in _ARGTYPES[name].items():
-        fn = getattr(lib, fn_name)
-        if fn.argtypes is None:
-            fn.argtypes = types
-            fn.restype = ctypes.c_int
-    return lib

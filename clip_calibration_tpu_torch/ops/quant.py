@@ -24,11 +24,13 @@ package's bits at fp32:
   XLA); ``w8a8`` (static ``act_scale`` when attached, else dynamic per-row
   activation scales), ``w8a8_dynamic`` (per-row, ignoring any
   ``act_scale``) and ``w8a8_kernel`` (the JAX package's kernel-backed
-  per-row path, ``w8a8_matmul``). All three int8 modes run their
-  int8 x int8 -> int32 product and the fp32 rescale ``acc * x_scale *
-  w_scale`` through ``ops/int8_matmul.py::rescaled_int8_matmul`` (on the
-  card one launch of kernel K3, the rescale in its epilogue, the weight's
-  ``kmajor`` copy passed).
+  per-row path, which ``ops/int8_matmul.py::w8a8_matmul`` twins). All
+  three int8 modes pick the activation scale once (static, per row, or
+  per row through ``row_amax``), then run their int8 x int8 -> int32
+  product and the fp32 rescale ``acc * x_scale * w_scale`` through
+  ``ops/int8_matmul.py::rescaled_int8_matmul`` (on the card one launch of
+  kernel K3, the rescale in its epilogue, the weight's ``kmajor`` copy
+  passed).
 
 The text tower's static scales (``calibrate_text_act_scales``,
 ``attach_text_act_scales``) serve the eval-time text fan-out of CoCoOp and
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .int8_matmul import rescaled_int8_matmul, w8a8_matmul
+from .int8_matmul import rescaled_int8_matmul
 
 
 class QuantizedWeight(nn.Module):
@@ -136,17 +138,31 @@ def qdot(x: torch.Tensor, w, qmode: str = "dequant",
         return x @ dequantize(w, x.dtype)
     if qmode not in QMODES:
         raise ValueError(f"qmode={qmode!r}: expected one of {QMODES}")
+    xq, xs = _quantize_input(x, w, qmode, row_amax)
+    return rescaled_int8_matmul(xq, xs, w.int8, w.scale, x.dtype, w.kmajor)
+
+
+def _quantize_input(x: torch.Tensor, w: QuantizedWeight, qmode: str,
+                    row_amax=None):
+    """``qdot``'s int8 activation and its scale, picked once: the static
+    ``act_scale`` under w8a8, else per row (through ``row_amax``). Its
+    fp32 copy of x is freed before the product runs."""
+    xf = x.detach().float()
     if qmode == "w8a8" and w.act_scale is not None:
         # static calibrated scale: one scalar, no reduction over x
-        return rescaled_int8_matmul(_to_int8(x.float(), w.act_scale),
-                                    w.act_scale, w.int8, w.scale, x.dtype,
-                                    w.kmajor)
-    if row_amax is None:
-        return w8a8_matmul(x, w.int8, w.scale, w.kmajor)
-    xf = x.float()
-    xs = _absmax_scale(row_amax(xf.abs().amax(dim=-1, keepdim=True)))
-    return rescaled_int8_matmul(_to_int8(xf, xs), xs, w.int8, w.scale,
-                                x.dtype, w.kmajor)
+        xs = w.act_scale
+    else:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        xs = _absmax_scale(amax if row_amax is None else row_amax(amax))
+    return _to_int8(xf, xs), xs
+
+
+def bucket_qmode(qmode: str, rows: int) -> str:
+    """The qmode of a batch of ``rows`` rows (the global batch on a
+    mesh): under w8a8 a single row runs the dynamic per-row path over the
+    same int8 weights (the JAX package's rule; it changes the numbers,
+    not only the speed)."""
+    return "w8a8_dynamic" if qmode == "w8a8" and rows == 1 else qmode
 
 
 # ---------------------------------------------------------------------------

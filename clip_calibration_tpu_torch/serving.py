@@ -46,6 +46,7 @@ from .models.backbone import load_clip_backbone
 from .models.tokenizer import tokenize
 from .ops.preprocess import (CLIP_PIXEL_MEAN, CLIP_PIXEL_STD,
                              device_preprocess, normalize_images)
+from .ops.quant import bucket_qmode
 from .ops.scoring import fused_dac_scores
 from .parallel import mesh as P
 from .parallel.tp import tower_tp
@@ -280,9 +281,8 @@ class Predictor:
         """Encode + calibrated scoring of one padded chunk; the features
         stay on the device. On a mesh this data rank's rows, the
         probabilities gathered."""
-        q = self.qmode
-        if self.act_stats is not None and images.shape[0] < 2:
-            q = "w8a8_dynamic"  # the 1-row bucket (of the whole chunk)
+        # the 1-row bucket (of the whole chunk) runs per-row scales
+        q = bucket_qmode(self.qmode, images.shape[0])
         images = _to_device(P.local_rows(images, self.mesh), self.device)
         img_f = M.normalize(M.encode_image(
             self.model, self.cfg, self._preprocess(images), dtype=self.dtype,

@@ -41,14 +41,15 @@ from ..ops import build
 from .profiling import L2_FLUSH_BYTES, nvidia_smi, time_ms
 
 OUT_DIR = osp.join(osp.dirname(build.BUILD_DIR), "kernel_variants")
-_ARGTYPES = {
-    "mha_qkv_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-    "mha_qkv_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-    "int8_attention": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-}
+
+
+def argtypes(target: str) -> dict:
+    """The C entry points of a target's library, from the ``ARGTYPES``
+    table of the kernel's module (``ops/build.py::load``)."""
+    from ..ops import int8_attention, int8_matmul, layer_norm, mha_qkv
+    tables = {**mha_qkv.ARGTYPES, **int8_matmul.ARGTYPES,
+              **int8_attention.ARGTYPES, **layer_norm.ARGTYPES}
+    return tables[source_file(target)[:-3]]
 
 
 def _emit(**fields):
@@ -240,14 +241,7 @@ def compile_variants(target: str, variants: dict, csrc: str = None,
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
         _emit(built=name, ptxas=[ln.strip() for ln in log.splitlines()
                                  if "registers" in ln or "spill" in ln])
-        libs[name] = ctypes.CDLL(lib)
-        if source != "int8_matmul.cu":
-            getattr(libs[name], source[:-3]).argtypes = \
-                _ARGTYPES[source[:-3]]
-        else:
-            from ..ops.int8_matmul import ARGTYPES
-            for fn, types in ARGTYPES.items():
-                getattr(libs[name], fn).argtypes = types
+        libs[name] = build.bind(ctypes.CDLL(lib), argtypes(target))
     return libs
 
 

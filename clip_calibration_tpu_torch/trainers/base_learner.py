@@ -32,6 +32,7 @@ from ..engine.trainer import TrainerX
 from ..models import clip as M
 from ..models.backbone import load_clip_backbone
 from ..models.tokenizer import tokenize
+from ..ops.quant import bucket_qmode
 from ..parallel import mesh as P
 from ..tools import profiling
 from .calibration.proximity import (get_knn_dists, get_val_image_knn_dists,
@@ -191,17 +192,13 @@ class VLBaseLearner(TrainerX):
         return self.clip_model if m is None else m
 
     def vision_qmode_for(self, batch_rows: int) -> str:
-        """qmode of an image batch of ``batch_rows`` rows: under w8a8 a
-        single row runs the dynamic per-row path over the same int8
-        weights, as the serving Predictor's 1-row bucket does (the JAX
-        package's rule; it changes the numbers, not only the speed). On a
-        mesh the rule reads the global batch (this rank's rows times the
-        data axis), as the JAX program's shape does."""
+        """qmode of an image batch of ``batch_rows`` rows
+        (``ops/quant.py::bucket_qmode``, as the serving Predictor's 1-row
+        bucket). On a mesh the rule reads the global batch (this rank's
+        rows times the data axis), as the JAX program's shape does."""
         if self.mesh is not None:
             batch_rows *= self.mesh.dims[0]
-        if self.vision_qmode == "w8a8" and batch_rows == 1:
-            return "w8a8_dynamic"
-        return self.vision_qmode
+        return bucket_qmode(self.vision_qmode, batch_rows)
 
     def _calibration_images(self):
         """One raw uint8 image batch for static activation-scale

@@ -216,3 +216,134 @@ def test_params_from_numpy_rejects_incomplete_dicts(both):
     with pytest.raises(KeyError, match="visual.proj"):
         TW.params_from_numpy(jparams, TM.PRESETS["ViT-Test"],
                              torch.float32, "cpu")
+
+
+# -- the block forward, bit for bit -------------------------------------------
+
+def _spelled_qdot(x, w, qmode, row_amax=None):
+    """``ops/quant.py::qdot`` spelled out path by path: the static scale,
+    ``w8a8_matmul`` per row, or per row through ``row_amax``."""
+    from clip_calibration_tpu_torch.ops import quant as Q
+    from clip_calibration_tpu_torch.ops.int8_matmul import (
+        rescaled_int8_matmul, w8a8_matmul)
+    if not Q.is_quantized(w):
+        return x @ w.to(x.dtype)
+    if qmode == "dequant":
+        return x @ Q.dequantize(w, x.dtype)
+
+    def to_int8(xf, s):
+        return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    if qmode == "w8a8" and w.act_scale is not None:
+        return rescaled_int8_matmul(to_int8(x.float(), w.act_scale),
+                                    w.act_scale, w.int8, w.scale, x.dtype,
+                                    w.kmajor)
+    if row_amax is None:
+        return w8a8_matmul(x, w.int8, w.scale, w.kmajor)
+    xf = x.float()
+    amax = row_amax(xf.abs().amax(dim=-1, keepdim=True))
+    xs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return rescaled_int8_matmul(to_int8(xf, xs), xs, w.int8, w.scale,
+                                x.dtype, w.kmajor)
+
+
+def _spelled_block(b, h, n_heads, mask, qmode, tp):
+    """The block spelled out as two forwards: the whole block (attention
+    in ``multi_head_attention``'s formula, every bias cast to the product
+    input's dtype) and the tensor-parallel one (each bias cast to h's
+    dtype, the reduction before the bias)."""
+    from clip_calibration_tpu_torch.ops.mha_qkv import mha_qkv
+    a, m = b.attn, b.mlp
+    ln1 = b.ln_1(h)
+    if tp is None:
+        qkv = _spelled_qdot(ln1, a.wqkv, qmode) + a.bqkv.to(ln1.dtype)
+        ctx = mha_qkv(qkv.contiguous(), mask.float().contiguous(), n_heads)
+        h = h + (_spelled_qdot(ctx, a.wo, qmode) + a.bo.to(ln1.dtype))
+        fc_in = b.ln_2(h)
+        y = b.act(_spelled_qdot(fc_in, m.w_fc, qmode)
+                  + m.b_fc.to(fc_in.dtype))
+        return h + (_spelled_qdot(y, m.w_proj, qmode) + m.b_proj.to(y.dtype))
+    w = tp.block(b)
+    qkv = _spelled_qdot(ln1, w["wqkv"], qmode) + w["bqkv"].to(h.dtype)
+    ctx = mha_qkv(qkv.contiguous(), mask.float().contiguous(),
+                  tp.heads(n_heads))
+    h = h + (tp.all_reduce(_spelled_qdot(ctx, w["wo"], qmode, tp.max))
+             + a.bo.to(h.dtype))
+    fc_in = b.ln_2(h)
+    y = b.act(_spelled_qdot(fc_in, w["w_fc"], qmode) + w["b_fc"].to(h.dtype))
+    return h + (tp.all_reduce(_spelled_qdot(y, w["w_proj"], qmode, tp.max))
+                + m.b_proj.to(h.dtype))
+
+
+class _DoublingTP:
+    """Stands in for ``parallel/tp.py::TowerTP`` in one process: the whole
+    block's weights and heads, and a reduction and row max that double
+    their input (exact, and visible in the output wherever they are
+    applied)."""
+
+    def block(self, b):
+        a, m = b.attn, b.mlp
+        return {"wqkv": a.wqkv, "bqkv": a.bqkv, "wo": a.wo,
+                "w_fc": m.w_fc, "b_fc": m.b_fc, "w_proj": m.w_proj}
+
+    def heads(self, n_heads):
+        return n_heads
+
+    def all_reduce(self, t):
+        return t * 2
+
+    def max(self, t):
+        return t * 2
+
+
+#: OpenAI's layout (heads of 64, 4x MLP, QuickGELU) and OpenCLIP's
+#: (heads of 104, a stated MLP width, exact GELU), at toy depth and width
+BLOCK_LAYOUTS = {
+    "openai": TM.CLIPConfig(32, 32, 2, 128, 8, 64, 4, 2),
+    "openclip": TM.CLIPConfig(32, 32, 2, 208, 8, 64, 4, 2, vision_heads=2,
+                              vision_mlp_width=1008, activation="gelu"),
+}
+
+
+@pytest.mark.parametrize("tp", [None, "doubling"])
+@pytest.mark.parametrize("mode", ["plain", "dequant", "w8a8", "w8a8_static"])
+@pytest.mark.parametrize("layout", sorted(BLOCK_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_forward_matches_the_spelled_out_block_bit_for_bit(dtype, layout,
+                                                                mode, tp):
+    """``Block.forward`` (one forward for the whole and the
+    tensor-parallel block, every product through ``biased_qdot``) gives
+    the spelled-out block's output and input gradient exactly, on plain
+    and int8 weights in each int8 mode, with nonzero biases."""
+    from clip_calibration_tpu_torch.ops import quant as Q
+    cfg = BLOCK_LAYOUTS[layout]
+    model = TM.init_clip(TM.CLIP(cfg, dtype, "cpu"), 3)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for b in model.visual.blocks:
+            for p in (b.attn.bqkv, b.attn.bo, b.mlp.b_fc, b.mlp.b_proj):
+                p.copy_(torch.randn(p.shape, generator=gen))
+    if mode != "plain":
+        model = Q.quantize_clip_params(model)
+    if mode == "w8a8_static":
+        n = cfg.vision_layers
+        blocks = {}
+        for i, (o, k) in enumerate(Q.BLOCK_WEIGHTS):
+            blocks.setdefault(o, {})[k] = np.full(n, 2.5 + i, np.float32)
+        model = Q.attach_act_scales(model, {"patch_kernel": 1.0,
+                                            "proj": 1.0, "blocks": blocks})
+    qmode = {"plain": "dequant", "w8a8_static": "w8a8"}.get(mode, mode)
+    b = model.visual.blocks[1]
+    tp = _DoublingTP() if tp else None
+    L, width = 16, cfg.vision_width
+    h = torch.randn((2, L, width), generator=gen).to(dtype)
+    g = torch.randn((2, L, width), generator=gen).to(dtype)
+    mask = TM.causal_mask(L)
+    outs = []
+    for fn in (b, lambda *a, tp: _spelled_block(b, *a, tp)):
+        x = h.clone().requires_grad_(True)
+        out = fn(x, cfg.vision_heads, mask, qmode, tp=tp)
+        outs.append((out, *torch.autograd.grad(out, x, g)))
+    (got, got_dx), (want, want_dx) = outs
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(got_dx, want_dx)

@@ -185,3 +185,43 @@ def test_kernel_variants_apply_to_the_sources(source):
     with pytest.raises(ValueError, match="is not in"):
         kv.apply_variants(source, {"bad": [["no such text", ""]]})
     assert kv.main([]) == 2
+    # the variants' libraries are bound from the kernel module's own table
+    from clip_calibration_tpu_torch.ops import (int8_attention, int8_matmul,
+                                                mha_qkv)
+    name = kv.source_file(source)[:-3]
+    module = {"mha_qkv_fwd": mha_qkv, "mha_qkv_bwd": mha_qkv,
+              "int8_matmul": int8_matmul,
+              "int8_attention": int8_attention}[name]
+    assert kv.argtypes(source) is module.ARGTYPES[name]
+
+
+_C_TYPES = {"void*": "c_void_p", "constvoid*": "c_void_p", "int": "c_int",
+            "float": "c_float"}
+
+
+@pytest.mark.parametrize("name", ["mha_qkv_fwd", "mha_qkv_bwd",
+                                  "int8_matmul", "int8_attention",
+                                  "layer_norm"])
+def test_kernel_tables_match_the_c_entry_points(name):
+    """Each kernel module's ``ARGTYPES`` (what ``ops/build.py::load``
+    binds) names every ``extern "C"`` entry point of the library's source,
+    with its parameters' types in order, and nothing else."""
+    import ctypes
+    import importlib
+
+    from clip_calibration_tpu_torch.ops import build
+    module = importlib.import_module(
+        "clip_calibration_tpu_torch.ops."
+        + ("mha_qkv" if name.startswith("mha_qkv") else name))
+    text = open(osp.join(build.CSRC_DIR, build.SOURCES[name])).read()
+    entries = {
+        fn: [_C_TYPES[re.sub(r"\s+|\w+$", "", p.strip())]
+             for p in params.split(",")]
+        for fn, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                     text)}
+    assert entries, name
+    table = module.ARGTYPES[name]
+    assert {fn: [t.__name__ for t in types]
+            for fn, types in table.items()} == entries
+    assert all(t in (ctypes.c_void_p, ctypes.c_int, ctypes.c_float)
+               for types in table.values() for t in types)
